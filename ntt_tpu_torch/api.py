@@ -15,13 +15,19 @@ input with the default ``device="cuda"`` raises on a machine without a
 card.
 
 Variant ``"auto"`` resolves to ``"pallas-fused"`` wherever N fits one
-block's shared memory (m <= 14 at word 64, m <= 15 at word 32) and raises
-``ValueError`` beyond that, where the two-pass ``"sixstep"`` variant,
-not ported yet, would serve.  This is not the JAX package's measured
+block's shared memory (m <= 14 at word 64, m <= 15 at word 32) and to the
+two-pass ``"sixstep"`` beyond.  This is not the JAX package's measured
 ``_AUTO_TABLE``: at m <= 8 the JAX forward ``"auto"`` picks ``"radix2"``
 or ``"radix4-u32"``, whose lazy outputs differ from the six-step's by
 contract, so lazy outputs are compared per named variant.  Strict outputs
 are the same for every variant.
+
+``"sixstep-unordered"`` returns the forward in the transposed layout that
+``output_layout`` describes, and its inverse reads that layout; the
+layout's split is the JAX package's (``kernels.sixstep.word_split``), so
+the permutation is the JAX package's too.  ``negacyclic_mul`` through
+``"sixstep"`` (and ``"auto"`` beyond one block) keeps both forwards and the
+product in that layout, as the JAX package's fused product does.
 """
 
 from __future__ import annotations
@@ -32,9 +38,9 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ntt_tpu.params import NttParams
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch.kernels import fused, pointwise
+from ntt_tpu_torch.kernels import fused, layouts, pointwise, sixstep, twopass
+from ntt_tpu_torch.params import NttParams
 from ntt_tpu_torch.plan import NttPlan, get_plan
 
 
@@ -82,6 +88,54 @@ register(
 )
 
 
+def _split(plan: NttPlan) -> int:
+    return sixstep.word_split(plan.n, plan.word)
+
+
+def _sixstep_fwd(plan: NttPlan, a, lazy: bool, keep_transposed: bool = False):
+    n1_log = _split(plan)
+    a = twopass.fwd_cols(a, plan, n1_log)
+    return twopass.fwd_rows(a, plan, n1_log, strict=not lazy,
+                            keep_transposed=keep_transposed)
+
+
+def _sixstep_inv(plan: NttPlan, a, input_transposed: bool = False):
+    n1_log = _split(plan)
+    a = twopass.inv_rows(a, plan, n1_log, input_transposed=input_transposed)
+    return twopass.inv_cols(a, plan, n1_log)
+
+
+register(
+    Variant(
+        "sixstep",
+        fwd=_sixstep_fwd,
+        inv=_sixstep_inv,
+        description="two-pass six-step N = N1 x N2: column pass, then row pass "
+        "(forward); row pass, then column pass with the fused n^-1 stage "
+        "(inverse); any N whose rows and columns fit a block",
+    )
+)
+
+register(
+    Variant(
+        "sixstep-unordered",
+        fwd=lambda plan, a, lazy: _sixstep_fwd(plan, a, lazy, keep_transposed=True),
+        inv=lambda plan, a: _sixstep_inv(plan, a, input_transposed=True),
+        description="six-step forward whose output stays in the transposed "
+        "layout of output_layout(); the inverse reads that layout",
+    )
+)
+
+
+def output_layout(variant: str, params_or_plan) -> layouts.Layout:
+    """Layout of a variant's forward output: ``layouts.standard`` unless the
+    variant keeps another (``"sixstep-unordered"``: the transposed one)."""
+    plan = _resolve(params_or_plan)
+    if variant == "sixstep-unordered":
+        return layouts.transposed(plan.n, _split(plan))
+    return layouts.standard(plan.n)
+
+
 def _resolve(params_or_plan) -> NttPlan:
     if isinstance(params_or_plan, NttPlan):
         return params_or_plan
@@ -91,7 +145,10 @@ def _resolve(params_or_plan) -> NttPlan:
 
 
 def _pick(plan: NttPlan, variant: str, inverse: bool = False) -> Variant:
-    v = get_variant("pallas-fused" if variant == "auto" else variant)
+    if variant == "auto":
+        fits = plan.m <= fused.max_logn(plan.word)
+        variant = "pallas-fused" if fits else "sixstep"
+    v = get_variant(variant)
     if inverse and v.inv is None:
         raise ValueError(f"variant {v.name} has no inverse kernel")
     if plan.q.bit_length() > v.max_q_bits:
@@ -104,8 +161,7 @@ def _pick(plan: NttPlan, variant: str, inverse: bool = False) -> Variant:
         if plan.m > cap:
             raise ValueError(
                 f"variant {v.name} serves m <= {cap} at word {plan.word}, got "
-                f"m={plan.m}; the two-pass 'sixstep' variant for larger N is "
-                "not ported yet"
+                f"m={plan.m}; the two-pass 'sixstep' variant serves larger N"
             )
     return v
 
@@ -173,10 +229,14 @@ def pointwise_mul(a, b, params_or_plan, device="cuda"):
 
 def negacyclic_mul(a, b, params_or_plan, variant: str = "auto", device="cuda"):
     """Polynomial product in R_q[X]/(X^N + 1): forward NTT of both operands,
-    pointwise product, inverse NTT, all on the device; strict output."""
+    pointwise product, inverse NTT, all on the device; strict output.
+    Through the six-step the operands stay in the transposed layout from
+    the forwards to the inverse."""
     plan = _resolve(params_or_plan)
     _same_kind(a, b)
     v = _pick(plan, variant, inverse=True)
+    if v.name == "sixstep":
+        v = get_variant("sixstep-unordered")
     x, host = _to_device(a, plan, device)
     y, _ = _to_device(b, plan, device)
     out = v.inv(plan, pointwise.mul_mod(v.fwd(plan, x, False), v.fwd(plan, y, False),

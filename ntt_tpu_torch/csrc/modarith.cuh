@@ -63,6 +63,17 @@ NTT_HD T reduce_4q_to_q(T v, T q) {
   return reduce_2q_to_q<T>(reduce_4q_to_2q<T>(v, q), q);
 }
 
+// Radix-2 stage with groups of t = 2^lt butterflies: butterfly j of the stage
+// pairs a[i0] and a[i0 + t] of group g = j / t, under twiddle index m + g.
+struct StageIndex {
+  int i0, i1, g;
+  NTT_HD StageIndex(int j, int lt) {
+    g = j >> lt;
+    i0 = (g << (lt + 1)) | (j & ((1 << lt) - 1));
+    i1 = i0 + (1 << lt);
+  }
+};
+
 // Shoup: (w*t - hi(w_con*t)*q) mod 2^word, in [0, 2q) for t < 2^word and
 // w_con = floor(w * 2^word / q).
 template <typename T>

@@ -3,8 +3,9 @@
 //
 // K1 fwd_fused_kernel replaces the Pallas kernel _fwd_kernel
 // (ntt_tpu/kernels/pallas_fused.py:230); K2 inv_fused_kernel replaces
-// _inv_kernel (:257) and the two-launch pair _inv_rows_kernel (:286) +
-// _inv_cols_kernel (:307), computing both in one residency.
+// _inv_kernel (:257), the whole inverse in one residency (the JAX word-64
+// inverse splits it into _inv_rows_kernel (:286) + _inv_cols_kernel (:307),
+// which K6 / K7 of ntt_sixstep.cu port as separate launches).
 //
 // What bounds them on an H100: each butterfly stage reads and writes all N
 // coefficients of shared memory once and needs a block-wide barrier, and each
@@ -29,17 +30,6 @@
 namespace ntt {
 
 constexpr int kMaxThreads = 1024;
-
-// Radix-2 stage with m groups of t = 2^lt butterflies: butterfly j of the
-// stage pairs a[i0] and a[i0 + t] under twiddle index m + g.
-struct StageIndex {
-  int i0, i1, g;
-  __device__ __forceinline__ StageIndex(int j, int lt) {
-    g = j >> lt;
-    i0 = (g << (lt + 1)) | (j & ((1 << lt) - 1));
-    i1 = i0 + (1 << lt);
-  }
-};
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)

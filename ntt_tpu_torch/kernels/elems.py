@@ -14,6 +14,8 @@ from ntt_tpu_torch import modmath as mm
 class U32Ops:
     """Word-32 Shoup constants; q < 2^30; int32 reps."""
 
+    word = 32
+
     @staticmethod
     def fwd_bfly(x, y, wo, wc, q: int):
         """Harvey forward: inputs < 4q, outputs < 4q."""
@@ -54,6 +56,8 @@ class U32Ops:
 class U64Ops:
     """Word-64 Shoup constants; any q < 2^62; int64 reps.  Bit-exact with
     ``ntt_tpu.refmodel`` including lazy representatives."""
+
+    word = 64
 
     @staticmethod
     def fwd_bfly(x, y, wo, wc, q: int):

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels of ``csrc/`` through nvcc and ctypes.
 
 At first use, nvcc compiles every ``csrc/*.cu`` of this package for
-``sm_90a`` into one shared library with a plain C interface, written to
+``sm_90a``, one process per source, all started together, and links the
+objects into one shared library with a plain C interface, written to
 ``build/`` under a name that hashes the sources and flags, so an edited
 source builds anew and an unchanged one is loaded as it is.  The library
 is loaded with ctypes: pointers and the CUDA stream pass as ``c_void_p``,
@@ -25,9 +26,10 @@ import time
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + (
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+COMPILE_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+LINK_FLAGS = ARCH_FLAGS + ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +38,10 @@ _LL = ctypes.c_longlong
 _FUSED_FWD = [_P, _P, _P, _P, _U64, _I, _I, _I, _P]
 _FUSED_INV = [_P, _P, _P, _P, _U64, _U64, _U64, _U64, _U64, _I, _I, _I, _P]
 _MUL_MOD = [_P, _P, _P, _LL, _U64, _P]
+_FWD_COLS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P]
+_FWD_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _P]
+_INV_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P]
+_INV_COLS = [_P, _P, _P, _P, _U64, _U64, _U64, _U64, _U64, _I, _I, _I, _I, _I, _P]
 SIGNATURES = {
     "ntt_fwd_fused_u32": _FUSED_FWD,
     "ntt_fwd_fused_u64": _FUSED_FWD,
@@ -43,6 +49,9 @@ SIGNATURES = {
     "ntt_inv_fused_u64": _FUSED_INV,
     "ntt_mul_mod_u32": _MUL_MOD,
     "ntt_mul_mod_u64": _MUL_MOD,
+    **{f"ntt_{k}_u{w}": sig for w in (32, 64)
+       for k, sig in (("fwd_cols", _FWD_COLS), ("fwd_rows", _FWD_ROWS),
+                      ("inv_rows", _INV_ROWS), ("inv_cols", _INV_COLS))},
 }
 
 
@@ -58,7 +67,7 @@ def sources() -> list[pathlib.Path]:
 
 
 def library_path() -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh"):
             h.update(f.name.encode())
@@ -79,6 +88,21 @@ def find_nvcc() -> str:
     )
 
 
+def _run(cmds: list[list[str]]) -> list[subprocess.CompletedProcess]:
+    """Run the commands in parallel; every process has ended on return."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+        return [subprocess.CompletedProcess(c, p.returncode, out)
+                for c, p, out in zip(cmds, procs, outs)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
 def build() -> BuildResult:
     """Compile ``csrc/*.cu`` unless the library of these sources exists."""
     path = library_path()
@@ -86,18 +110,25 @@ def build() -> BuildResult:
         return BuildResult(path, 0.0, "")
     BUILD.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    objs = [tmp.with_name(f"{tmp.name}.{src.stem}.o") for src in sources()]
+    nvcc = find_nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, path)
-    return BuildResult(path, seconds, proc.stdout + proc.stderr)
+    try:
+        steps = [[[nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)]
+                  for src, obj in zip(sources(), objs)],
+                 [[nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]]]
+        log = ""
+        for cmds in steps:
+            for proc in _run(cmds):
+                log += proc.stdout
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
+                                       f"{' '.join(proc.args)}\n{proc.stdout}")
+        os.replace(tmp, path)
+    finally:
+        for f in (tmp, *objs):
+            f.unlink(missing_ok=True)
+    return BuildResult(path, time.perf_counter() - t0, log)
 
 
 @functools.lru_cache(maxsize=1)

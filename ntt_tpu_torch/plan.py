@@ -6,7 +6,7 @@ transform reads: the bit-reversed root powers ``w`` / ``w_inv`` with
 their Shoup constants at word 64 (``w_con``, ``w_inv_con``) and word 32
 (``w_con32``, ``w_inv_con32``), the n^-1 constants, and the fused final
 stage's ``(f_tmp, f_con)`` (``ntt_tpu.kernels.radix2._final_mulop``).
-Host tables are numpy uint64 built by ``ntt_tpu.twiddles``; device
+Host tables are numpy uint64 built by the port's ``twiddles``; device
 tables are int32 or int64 tensors of the plan's width, cached per device.
 """
 
@@ -18,9 +18,9 @@ import functools
 import numpy as np
 import torch
 
-from ntt_tpu import twiddles as tw
-from ntt_tpu.params import NttParams
 from ntt_tpu_torch import modmath as mm
+from ntt_tpu_torch import twiddles as tw
+from ntt_tpu_torch.params import NttParams
 
 ARRAY_TABLES = ("w", "w_con", "w_inv", "w_inv_con", "w_con32", "w_inv_con32")
 SCALAR_TABLES = ("n_inv_con", "n_inv_con32")

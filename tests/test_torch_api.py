@@ -1,7 +1,9 @@
 """The port's public API (ntt_tpu_torch.api) on the CPU: against the JAX
-package's api and ntt_tpu.refmodel, plus the port's own rules -- no jax
-import, no silent CPU run for device="cuda", no kernel launch from the CPU
-route, and 'auto' bounded by one block's shared memory."""
+package's api and ntt_tpu.refmodel, plus the port's own rules -- no import
+of jax or of ntt_tpu, no silent CPU run for device="cuda", no kernel launch
+from the CPU route, and 'auto' = pallas-fused within one block's shared
+memory, the two-pass sixstep beyond.  The port takes its own NttParams:
+the JAX package's come in through params.from_fields."""
 
 import os
 import pathlib
@@ -14,17 +16,20 @@ import torch
 
 from ntt_tpu import api as jax_api
 from ntt_tpu import refmodel as rm
-from ntt_tpu.params import FIXTURES, NttParams, bench_params
+from ntt_tpu.params import FIXTURES as JFIXTURES
+from ntt_tpu.params import NttParams as JNttParams
 from ntt_tpu.plan import get_plan as jax_get_plan
 from ntt_tpu_torch import api
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch.kernels import fused, pointwise, sixstep
+from ntt_tpu_torch.kernels import fused, pointwise, sixstep, twopass
+from ntt_tpu_torch.params import FIXTURES, NttParams, bench_params, from_fields
 from ntt_tpu_torch.plan import TABLE_NAMES, NttPlan, get_plan
 
 from conftest import fixture_id
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 ONE_OF_EACH_WIDTH = [FIXTURES[0], NttParams.generate(62, 8)]
+JAX_ONE_OF_EACH_WIDTH = [JFIXTURES[0], JNttParams.generate(62, 8)]
 
 
 def rand(p, shape, seed):
@@ -32,33 +37,33 @@ def rand(p, shape, seed):
 
 
 def zero_launch_counts():
-    for counts in (fused.LAUNCHES, pointwise.LAUNCHES):
+    for counts in (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def test_variant_registry():
-    assert set(api.variants()) == {"pallas-fused"}
-    assert api.get_variant("pallas-fused").inv is not None
+    assert set(api.variants()) == {"pallas-fused", "sixstep", "sixstep-unordered"}
+    assert all(v.inv is not None for v in api.variants().values())
     with pytest.raises(KeyError, match="unknown NTT variant"):
         api.get_variant("radix2")
 
 
-@pytest.mark.parametrize("p", ONE_OF_EACH_WIDTH, ids=fixture_id)
-def test_negacyclic_mul_matches_jax_api(p):
+@pytest.mark.parametrize("jp", JAX_ONE_OF_EACH_WIDTH, ids=fixture_id)
+def test_negacyclic_mul_matches_jax_api(jp):
     """The JAX product composed through the same variant (pallas-fused,
     interpret mode) as the port's."""
-    a, b = rand(p, (2, p.n), 20), rand(p, (2, p.n), 21)
-    np.testing.assert_array_equal(api.negacyclic_mul(a, b, p, device="cpu"),
-                                  jax_api.negacyclic_mul(a, b, p, variant="pallas-fused"))
+    a, b = rand(jp, (2, jp.n), 20), rand(jp, (2, jp.n), 21)
+    np.testing.assert_array_equal(api.negacyclic_mul(a, b, from_fields(jp), device="cpu"),
+                                  jax_api.negacyclic_mul(a, b, jp, variant="pallas-fused"))
 
 
-@pytest.mark.parametrize("p", ONE_OF_EACH_WIDTH, ids=fixture_id)
-def test_pointwise_mul_matches_jax_api(p):
-    a, b = rand(p, (2, p.n), 22), rand(p, (2, p.n), 23)
-    a[0, 0] = b[0, 0] = p.q - 1
-    np.testing.assert_array_equal(api.pointwise_mul(a, b, p, device="cpu"),
-                                  jax_api.pointwise_mul(a, b, p))
+@pytest.mark.parametrize("jp", JAX_ONE_OF_EACH_WIDTH, ids=fixture_id)
+def test_pointwise_mul_matches_jax_api(jp):
+    a, b = rand(jp, (2, jp.n), 22), rand(jp, (2, jp.n), 23)
+    a[0, 0] = b[0, 0] = jp.q - 1
+    np.testing.assert_array_equal(api.pointwise_mul(a, b, from_fields(jp), device="cpu"),
+                                  jax_api.pointwise_mul(a, b, jp))
 
 
 def test_headline_params_roundtrip_and_product_vs_refmodel():
@@ -76,9 +81,10 @@ def test_headline_params_roundtrip_and_product_vs_refmodel():
     np.testing.assert_array_equal(api.negacyclic_mul(a, b, p, device="cpu"), want)
 
 
-@pytest.mark.parametrize("p", ONE_OF_EACH_WIDTH, ids=fixture_id)
-def test_plan_from_jax_tables_equals_own_plan(p):
-    jplan = jax_get_plan(p)
+@pytest.mark.parametrize("jp", JAX_ONE_OF_EACH_WIDTH, ids=fixture_id)
+def test_plan_from_jax_tables_equals_own_plan(jp):
+    jplan = jax_get_plan(jp)
+    p = from_fields(jp)
     theirs = NttPlan.from_numpy(p, {k: getattr(jplan, k) for k in TABLE_NAMES})
     ours = NttPlan(p)
     for k, v in ours.host_tables().items():
@@ -93,10 +99,18 @@ def test_plan_from_jax_tables_equals_own_plan(p):
 
 
 def test_import_leaves_jax_out():
+    """Importing every module of the port and chip_smoke loads neither jax
+    nor anything of ntt_tpu."""
+    modules = sorted(
+        "ntt_tpu_torch" + "".join("." + part for part in f.relative_to(
+            REPO / "ntt_tpu_torch").with_suffix("").parts if part != "__init__")
+        for f in (REPO / "ntt_tpu_torch").rglob("*.py"))
+    assert "ntt_tpu_torch.kernels.twopass" in modules
     code = (
-        "import sys, ntt_tpu_torch, ntt_tpu_torch.api, ntt_tpu_torch.native, "
-        "ntt_tpu_torch.kernels.fused, ntt_tpu_torch.kernels.pointwise; "
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')); "
+        f"import sys, importlib; [importlib.import_module(m) for m in {modules!r}]; "
+        "import chip_smoke; "
+        "bad = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'ntt_tpu')); "
         "assert not bad, bad; print('jax-free')"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))
@@ -132,17 +146,29 @@ def test_cpu_route_launches_no_kernel():
         api.inv_ntt(f, p, device="cpu")
         api.pointwise_mul(a, a, p, device="cpu")
         api.negacyclic_mul(a, a, p, device="cpu")
+        for variant in ("sixstep", "sixstep-unordered"):
+            api.inv_ntt(api.fwd_ntt(a, p, variant, device="cpu"), p, variant, device="cpu")
+        api.negacyclic_mul(a, a, p, variant="sixstep", device="cpu")
     assert set(fused.LAUNCHES.values()) == {0}
     assert set(pointwise.LAUNCHES.values()) == {0}
+    assert set(twopass.LAUNCHES.values()) == {0}
 
 
 @pytest.mark.parametrize("p", [FIXTURES[15], NttParams.generate(29, 16)], ids=fixture_id)
 def test_auto_stops_beyond_one_block(p):
     """m = 15 at word 64 and m = 16 at word 32 do not fit one block's
-    shared memory: 'auto' names the two-pass six-step instead."""
-    a = np.zeros((1, p.n), dtype=np.uint64)
+    shared memory: 'auto' stops using pallas-fused there and takes the
+    two-pass six-step, and pallas-fused itself refuses, naming it."""
+    plan = get_plan(p)
+    below = get_plan(NttParams.generate(29 if plan.word == 32 else 62, p.m - 1))
+    assert api._pick(below, "auto").name == "pallas-fused"
+    assert api._pick(plan, "auto").name == "sixstep"
+    a = rand(p, (1, p.n), 32)
+    f = api.fwd_ntt(a, p, device="cpu")
+    np.testing.assert_array_equal(f, api.fwd_ntt(a, p, variant="sixstep", device="cpu"))
+    np.testing.assert_array_equal(api.inv_ntt(f, p, device="cpu"), a)
     with pytest.raises(ValueError, match="sixstep"):
-        api.fwd_ntt(a, p, device="cpu")
+        api.fwd_ntt(a, p, variant="pallas-fused", device="cpu")
     with pytest.raises(ValueError, match="sixstep"):
         api.inv_ntt(a, p, variant="pallas-fused", device="cpu")
 
