@@ -31,10 +31,24 @@ Phases, each of which raises on failure (nothing is caught):
    the reference fixtures 15 to 18 through 'auto'; products equal to the
    plain path's and to the schoolbook product at sampled coefficients,
    round trips exact; K4 to K7 must have been launched at both widths;
-7. times: CUDA events, warm-up, minimum over repetitions, kernel and plain
+7. lab kernels vs plain: at N = 2^14, batch 32, n1_log 7 (and 4), both
+   widths, inputs below 4q: L1 (fwd_fused_v2, two-stage and one-stage
+   rounds, strict and lazy), L2 (fwd_fused_v3, strict, lazy, kept
+   transposed) and the four L3 probes against their plain versions, bit
+   for bit;
+8. the lab path: with every launch count set to 0,
+   ``python -m ntt_tpu_torch.lab --cases both --no-time`` (N = 2^14, batch
+   512): every transform candidate equal to the plain six-step and to K1's
+   output, every probe to its plain version; K1 and every L1 / L2 / L3
+   kernel must have been launched at both widths;
+9. times: CUDA events, warm-up, minimum over repetitions, kernel and plain
    version in turns, beside the card's name and power limit; each kernel's
    bound, the larger of its bytes over the memory rate and its integer
-   multiplies over the multiply rate.
+   multiplies over the multiply rate.  The lab kernels and K1 at the lab's
+   shape are timed as the lab times them (a CUDA graph of launches, so the
+   host's launch overhead stays out), their plain versions at batch 32,
+   and diag_copy's and diag_moves's one-call PyTorch equivalents
+   (``clone``, ``flip``) as the lab kernels are timed.
 
 The last two lines before the final one are the nvidia-smi line and the
 kernel table as JSON; the final line is
@@ -48,7 +62,6 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
-import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -61,17 +74,26 @@ TWO_PASS = (("m16-q62", 128), ("m16-q29", 128), ("m20-q62", 16), ("m20-q29", 16)
             ("m24-q62", 1))
 FIXTURES_BEYOND = (15, 16, 17, 18)
 CSRC = "ntt_tpu_torch/csrc/"
+LAB = "tools/pallas_lab.py:"
+LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
+PROBES = ("diag_copy", "diag_mul", "diag_math", "diag_moves")
+LAB_BATCH_CHECK = 32
 SOURCES = {"fwd_fused": CSRC + "ntt_fused.cu", "inv_fused": CSRC + "ntt_fused.cu",
            "mul_mod": CSRC + "pointwise.cu", "fwd_cols": CSRC + "ntt_sixstep.cu",
            "fwd_rows": CSRC + "ntt_sixstep.cu", "inv_rows": CSRC + "ntt_sixstep.cu",
-           "inv_cols": CSRC + "ntt_sixstep.cu"}
+           "inv_cols": CSRC + "ntt_sixstep.cu",
+           **{k: CSRC + "ntt_lab.cu" for k in LAB_TRANSFORMS},
+           **{k: CSRC + "probes.cu" for k in PROBES}}
 REPLACES = {"fwd_fused": "ntt_tpu/kernels/pallas_fused.py:230",
             "inv_fused": "ntt_tpu/kernels/pallas_fused.py:257",
             "mul_mod": "ntt_tpu/api.py:1517",
             "fwd_cols": "ntt_tpu/kernels/sixstep.py:259",
             "fwd_rows": "ntt_tpu/kernels/sixstep.py:294",
             "inv_rows": "ntt_tpu/kernels/pallas_fused.py:286",
-            "inv_cols": "ntt_tpu/kernels/pallas_fused.py:307"}
+            "inv_cols": "ntt_tpu/kernels/pallas_fused.py:307",
+            "fwd_fused_v2_r2": LAB + "127", "fwd_fused_v2_r4": LAB + "127",
+            "fwd_fused_v3": LAB + "326", "diag_copy": LAB + "444", "diag_mul": LAB + "402",
+            "diag_math": LAB + "455", "diag_moves": LAB + "479"}
 # The card's rates for the bound (NVIDIA H100 SXM data sheet, 700 W): HBM3 at
 # 3.35 TB/s; 67 TFLOP/s of float32 are 128 fused multiply-adds per SM per
 # clock, and Hopper issues 32-bit integer multiply-adds at half that (CUDA
@@ -83,18 +105,26 @@ INT_MULS_PER_S = 67e12 / 4
 # low half three.  mul_mod: the full product, then folds (pointwise.cu).
 SHOUP_MULS = {32: 3, 64: 10}
 MUL_MOD_MULS = {32: 6, 64: 34}
+N_MULTS = 42  # the multiplies of diag_mul on each 32-bit half (probes.N_MULTS)
 
 
 def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int):
     """(bytes, 32-bit multiplies) one launch must move and do: each input
     read once (the twiddle entries it uses included), each output written
-    once."""
+    once.  The lab's transforms do K1's work; diag_math runs m rounds of
+    butterflies on N/2 pairs, as the lab calls it."""
     n, size = 1 << m, word // 8
     data = 2 * batch * n * size
     bfly = batch * n // 2 * SHOUP_MULS[word]  # one stage
     n1 = 1 << n1_log
+    fused = (data + 2 * n * size, bfly * m)
     return {
-        "fwd_fused": (data + 2 * n * size, bfly * m),
+        "fwd_fused": fused,
+        **{k: fused for k in LAB_TRANSFORMS},
+        "diag_copy": (data, 0),
+        "diag_moves": (data, 0),
+        "diag_mul": (data, batch * n * N_MULTS * word // 32),
+        "diag_math": (data + 2 * size, bfly * m),
         "inv_fused": (data + 2 * n * size, bfly * (m + 1)),  # final stage: two
         "mul_mod": (3 * batch * n * size, batch * n * MUL_MOD_MULS[word]),
         "fwd_cols": (data + 2 * n1 * size, bfly * n1_log),
@@ -183,18 +213,15 @@ def main() -> int:
         print(f"ntt_tpu_torch/ not found beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from ntt_tpu_torch import FIXTURES, NttParams, api, bench_params, native
+    from ntt_tpu_torch import FIXTURES, NttParams, api, bench_params, lab, native
     from ntt_tpu_torch import modmath as mm
-    from ntt_tpu_torch.kernels import fused, pointwise, sixstep, twopass
+    from ntt_tpu_torch.kernels import fused, fused_lab, pointwise, probes, sixstep, twopass
     from ntt_tpu_torch.kernels.elems import pick_ops
     from ntt_tpu_torch.plan import get_plan
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+    smi = lab.card(dev)
     print(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"{torch.cuda.device_count()} card(s); nvidia-smi: {smi}", flush=True)
 
@@ -453,22 +480,82 @@ def main() -> int:
               flush=True)
     del prod2, back2, fwd2, back_fx, fx2
 
+    lab_cases = ("u32", "u64")
+    lab_params = {c: lab.case_params(c, 14) for c in lab_cases}
+    lab_n1 = lab.lab_split(14)
+    phase(f"lab kernels vs plain: m14 batch {LAB_BATCH_CHECK}, n1_log {lab_n1} (and 4)")
+    for case in lab_cases:
+        p = lab_params[case]
+        plan = get_plan(p)
+        word = f"u{plan.word}"
+        a = rand(p, LAB_BATCH_CHECK, hi=4 * p.q)
+        for group in (1, 2):
+            for strict, keep_t in ((True, False), (False, False), (True, True)):
+                what = (f"{'strict' if strict else 'lazy'}"
+                        f"{', kept transposed' if keep_t else ''}")
+                note(f"fwd_fused_v2_r{2 * group}_{word}",
+                     fused_lab.fwd_fused_v2(a, plan, lab_n1, group, strict, keep_t),
+                     fused_lab.plain(a, plan, lab_n1, strict, keep_t),
+                     f"{case} L1 fwd_fused_v2 group {group} {what}")
+        for strict, keep_t in ((True, False), (False, False), (True, True)):
+            what = f"{'strict' if strict else 'lazy'}{', kept transposed' if keep_t else ''}"
+            note(f"fwd_fused_v3_{word}", fused_lab.fwd_fused_v3(a, plan, lab_n1, strict, keep_t),
+                 fused_lab.plain(a, plan, lab_n1, strict, keep_t),
+                 f"{case} L2 fwd_fused_v3 {what}")
+        note(f"fwd_fused_v2_r4_{word}", fused_lab.fwd_fused_v2(a, plan, 4),
+             fused_lab.plain(a, plan, 4), f"{case} L1 fwd_fused_v2 group 2 at n1_log 4")
+        note(f"fwd_fused_v3_{word}", fused_lab.fwd_fused_v3(a, plan, 4),
+             fused_lab.plain(a, plan, 4), f"{case} L2 fwd_fused_v3 at n1_log 4")
+        if not torch.equal(fused_lab.fwd_fused_v3(a, plan, lab_n1), fused.fwd_fused(a, plan)):
+            raise AssertionError(f"{case}: L2 differs from K1")
+        note(f"diag_copy_{word}", probes.diag_copy(a), a.clone(), f"{case} L3 diag_copy")
+        note(f"diag_mul_{word}", probes.diag_mul(a), probes.plain_mul(a), f"{case} L3 diag_mul")
+        note(f"diag_math_{word}", probes.diag_math(a, plan, p.m),
+             probes.plain_math(a, plan, p.m), f"{case} L3 diag_math, {p.m} rounds")
+        note(f"diag_moves_{word}", probes.diag_moves(a), a.flip(-1), f"{case} L3 diag_moves")
+        del a
+
+    phase("lab path: python -m ntt_tpu_torch.lab --cases both --no-time (m14 batch 512)")
+    torch.cuda.synchronize()
+    all_counts = (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES, fused_lab.LAUNCHES,
+                  probes.LAUNCHES)
+    for counts in all_counts:
+        for k in counts:
+            counts[k] = 0
+    records = lab.main(["--cases", "both", "--no-time"])
+    torch.cuda.synchronize()
+    launches3 = {**fused_lab.LAUNCHES, **probes.LAUNCHES}
+    print(f"  launch counts of the lab path: {launches3}; K1 {fused.LAUNCHES}", flush=True)
+    idle = [k for k, v in launches3.items() if v == 0]
+    idle += [k for k in ("fwd_fused_u32", "fwd_fused_u64") if fused.LAUNCHES[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched by the lab path: {idle}")
+    if len(records) != 2 * len(lab.CANDIDATES) or not all(r["exact"] for r in records):
+        raise AssertionError(f"the lab path did not check every candidate: {records}")
+    print(f"  {len(records)} candidates bit-exact (transforms against the plain six-step "
+          "and K1, probes against their plain versions)", flush=True)
+
     phase(f"times (CUDA events, min over reps; {smi})")
     table = []
 
-    def entry(name, count, k_ms, p_ms, m, n1_log, batch, word, shape, record):
+    def entry(name, count, k_ms, p_ms, m, n1_log, batch, word, shape, record,
+              library_ms=None, plain_shape=None):
         """Print one kernel time beside its bound; with record, add it to the
         kernel table."""
         base = name.rsplit("_", 1)[0]
         b_ms, b_by = bound(*kernel_work(base, m, n1_log, batch, word))
-        print(f"  {name} {shape}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us, "
-              f"bound {b_ms * 1e3:.1f} us ({b_by}; {b_ms / k_ms:.0%} of it)", flush=True)
+        lib = "" if library_ms is None else f", library {library_ms * 1e3:.1f} us"
+        print(f"  {name} {shape}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us"
+              f"{f' ({plain_shape})' if plain_shape else ''}{lib}, bound {b_ms * 1e3:.1f} us "
+              f"({b_by}; {b_ms / k_ms:.0%} of it)", flush=True)
         if record:
-            table.append({"name": name, "route": "cuda", "source": SOURCES[base],
-                          "replaces": REPLACES[base], "launches": count,
-                          "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
-                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                          "shape": shape})
+            row = {"name": name, "route": "cuda", "source": SOURCES[base],
+                   "replaces": REPLACES[base], "launches": count, "max_abs_err": errs[name],
+                   "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": library_ms, "shape": shape}
+            if plain_shape:
+                row["plain_shape"] = plain_shape
+            table.append(row)
 
     for case in CASES:
         p = params[case]
@@ -555,6 +642,37 @@ def main() -> int:
                   f"sum of the seven launches' bounds {b_ms * 1e3:.1f} us", flush=True)
         del a, c, f, r
         torch.cuda.empty_cache()
+
+    # the lab's kernels at the lab's shape, timed as the lab times them (a
+    # CUDA graph of launches); their plain versions at batch 32; the one
+    # PyTorch call that computes a probe's function, where there is one
+    lab_batch = 512
+    library = {"diag_copy": lambda v: v.clone(), "diag_moves": lambda v: v.flip(-1)}
+    for case in lab_cases:
+        p = lab_params[case]
+        plan = get_plan(p)
+        word = f"u{plan.word}"
+        x = rand(p, lab_batch)
+        small = x[:LAB_BATCH_CHECK].contiguous()
+        cands = lab.candidates(plan, lab_n1)
+        k1_ms = lab.cuda_us(cands["v1"].fn, x, 5, lab.INNER) / 1e3
+        parts = {}
+        for cand_name, cand in cands.items():
+            if cand_name == "v1":
+                continue
+            # plain, kernel, kernel, plain
+            p1 = cuda_ms(torch, lambda: cand.plain(small), 2)
+            k_ms = min(lab.cuda_us(cand.fn, x, 5, lab.INNER) for _ in range(2)) / 1e3
+            p_ms = min(p1, cuda_ms(torch, lambda: cand.plain(small), 2))
+            lib = library.get(cand.kernel)
+            lib_ms = None if lib is None else lab.cuda_us(lib, x, 5, lab.INNER) / 1e3
+            entry(f"{cand.kernel}_{word}", launches3[f"{cand.kernel}_{word}"], k_ms, p_ms,
+                  p.m, lab_n1, lab_batch, plan.word, f"m14 batch {lab_batch}", record=True,
+                  library_ms=lib_ms, plain_shape=f"m14 batch {LAB_BATCH_CHECK}")
+            parts[cand_name] = k_ms
+        print(f"  {case} m14 batch {lab_batch}: K1 {k1_ms * 1e3:.1f} us against "
+              + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in parts.items()), flush=True)
+        del x, small
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ntt_tpu"))

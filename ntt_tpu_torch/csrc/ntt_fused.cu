@@ -26,10 +26,9 @@
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
+#include "poly_block.cuh"
 
 namespace ntt {
-
-constexpr int kMaxThreads = 1024;
 
 template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -104,42 +103,25 @@ inv_fused_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
 }
 
-inline int block_threads(int logn) {
-  const int half = 1 << (logn - 1);
-  return half < kMaxThreads ? half : kMaxThreads;
-}
-
 template <typename T>
 int launch_fwd(const void* in, void* out, const void* w, const void* w_con,
                u64 q, int batch, int logn, int strict, void* stream) {
-  if (batch < 1 || logn < 1 || logn > 24) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) << logn;
-  cudaError_t err = cudaFuncSetAttribute(
-      fwd_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  fwd_fused_kernel<T><<<batch, block_threads(logn), smem, (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q, logn, strict);
-  return (int)cudaGetLastError();
+  return launch_per_poly<T>(fwd_fused_kernel<T>, batch, logn, stream, (const T*)in,
+                            (T*)out, (const T*)w, (const T*)w_con, (T)q, logn, strict);
 }
 
 template <typename T>
 int launch_inv(const void* in, void* out, const void* w, const void* w_con,
                u64 q, u64 n_inv, u64 n_inv_con, u64 f_tmp, u64 f_con_lo,
                int f_con_hi, int batch, int logn, void* stream) {
-  if (batch < 1 || logn < 1 || logn > 24) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) << logn;
-  cudaError_t err = cudaFuncSetAttribute(
-      inv_fused_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   FinalConsts<T> fc;
   fc.n_inv = (T)n_inv;
   fc.n_inv_con = (T)n_inv_con;
   fc.tmp = (T)f_tmp;
   fc.con_lo = (T)f_con_lo;
   fc.con_hi = f_con_hi;
-  inv_fused_kernel<T><<<batch, block_threads(logn), smem, (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q, fc, logn);
-  return (int)cudaGetLastError();
+  return launch_per_poly<T>(inv_fused_kernel<T>, batch, logn, stream, (const T*)in,
+                            (T*)out, (const T*)w, (const T*)w_con, (T)q, fc, logn);
 }
 
 }  // namespace ntt

@@ -1,0 +1,137 @@
+"""Cost probes of the fused forward transform: CUDA kernels L3, their plain
+PyTorch versions and their wrappers.
+
+The counterpart of the Pallas lab's diagnostic kernels
+(``tools/pallas_lab.py``: ``diag_copy`` :444, ``diag_mul`` :402,
+``diag_math`` :455, ``diag_moves`` :479, all through ``_diag_call`` :419).
+Each probe runs one part of K1's work (``kernels/fused.py``) at K1's
+geometry (one block per polynomial, ``min(N/2, 1024)`` threads, the
+polynomial loaded once into shared memory and stored once), so that their
+times split K1's:
+
+  * ``diag_copy``: the identity; the memory floor;
+  * ``diag_mul``: every 32-bit half of every word takes ``x*c + 1 mod 2^32``
+    42 times (c = 0x9E3779B1, as the Pallas probe): multiply throughput;
+  * ``diag_math``: ``n_rounds`` Harvey butterflies of coefficient i with
+    i + N/2 under stage 0's twiddle w[1]: the arithmetic without movement;
+  * ``diag_moves``: K1's stages with each butterfly replaced by a swap of
+    its pair: the shared-memory movement and the barriers without
+    arithmetic.  Each stage flips one bit of the index, so the result is
+    the polynomial reversed.
+
+The Pallas probes take a batch that is a multiple of their tile; these take
+any batch.  A wrapper runs the plain version for a tensor on the CPU and the
+kernel for a tensor on a CUDA device, with no fallback; ``LAUNCHES`` counts
+the kernel launches per probe and width.  The design is in
+``csrc/probes.cu``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ntt_tpu_torch import modmath as mm
+from ntt_tpu_torch import native
+from ntt_tpu_torch.kernels.elems import pick_ops
+from ntt_tpu_torch.kernels.fused import max_logn
+from ntt_tpu_torch.plan import NttPlan
+
+MUL_C = 0x9E3779B1
+N_MULTS = 42
+
+LAUNCHES = {f"diag_{k}_u{w}": 0 for k in ("copy", "mul", "math", "moves") for w in (32, 64)}
+
+
+def _word(a: torch.Tensor) -> int:
+    if a.dtype == torch.int32:
+        return 32
+    if a.dtype == torch.int64:
+        return 64
+    raise TypeError(f"expected an int32 or int64 tensor, got {a.dtype}")
+
+
+def _logn(a: torch.Tensor) -> int:
+    n = a.shape[-1] if a.dim() else 0
+    if n < 2 or n & (n - 1):
+        raise ValueError(f"last dim must be a power of two >= 2, got shape {tuple(a.shape)}")
+    return n.bit_length() - 1
+
+
+def _launch(probe: str, a: torch.Tensor, *args) -> torch.Tensor:
+    """Launch probe ``probe`` at a's width: (in, out, *args, batch, logn,
+    stream)."""
+    word, logn = _word(a), _logn(a)
+    if logn > max_logn(word):
+        raise ValueError(f"N=2^{logn} at word {word} exceeds one block's shared memory")
+    if not a.is_contiguous():
+        raise ValueError("the probes take a contiguous tensor")
+    out = torch.empty_like(a)
+    batch = a.numel() >> logn
+    if batch == 0:
+        return out
+    name = f"diag_{probe}_u{word}"
+    with torch.cuda.device(a.device):
+        native.launch(name, a.data_ptr(), out.data_ptr(), *args, batch, logn,
+                      native.stream(a.device))
+    LAUNCHES[name] += 1
+    return out
+
+
+def plain_mul(a: torch.Tensor) -> torch.Tensor:
+    if _word(a) == 32:
+        c = mm.s32(MUL_C)
+        for _ in range(N_MULTS):
+            a = a * c + 1  # int32 arithmetic wraps mod 2^32
+        return a
+    lo, hi = a & mm.MASK32, mm.shr64(a, 32)
+    for _ in range(N_MULTS):
+        lo = (lo * MUL_C + 1) & mm.MASK32
+        hi = (hi * MUL_C + 1) & mm.MASK32
+    return (hi << 32) | lo
+
+
+def plain_math(a: torch.Tensor, plan: NttPlan, n_rounds: int) -> torch.Tensor:
+    tabs = plan.device_tables(a.device)
+    ops = pick_ops(plan.q)
+    half = a.shape[-1] // 2
+    x, y = a[..., :half], a[..., half:]
+    for _ in range(n_rounds):
+        x, y = ops.fwd_bfly(x, y, tabs.w[1], tabs.w_con[1], plan.q)
+    return torch.cat([x, y], dim=-1)
+
+
+def diag_copy(a: torch.Tensor) -> torch.Tensor:
+    """Each polynomial as it is."""
+    _logn(a)
+    if native.route(a) == "cpu":
+        return a.clone()
+    return _launch("copy", a)
+
+
+def diag_mul(a: torch.Tensor) -> torch.Tensor:
+    """``x*c + 1 mod 2^32``, N_MULTS times, on each 32-bit half of each word."""
+    _logn(a)
+    if native.route(a) == "cpu":
+        return plain_mul(a)
+    return _launch("mul", a, MUL_C, N_MULTS)
+
+
+def diag_math(a: torch.Tensor, plan: NttPlan, n_rounds: int) -> torch.Tensor:
+    """n_rounds forward butterflies of (a[i], a[i + N/2]) under w[1]; a of
+    the plan's dtype, any N (the plan gives q and the twiddle)."""
+    _logn(a)
+    if a.dtype != plan.dtype:
+        raise TypeError(f"expected {plan.dtype} for q={plan.q:#x}, got {a.dtype}")
+    if native.route(a) == "cpu":
+        return plain_math(a, plan, n_rounds)
+    tabs = plan.device_tables(a.device)
+    return _launch("math", a, tabs.w.data_ptr(), tabs.w_con.data_ptr(), plan.q, n_rounds)
+
+
+def diag_moves(a: torch.Tensor) -> torch.Tensor:
+    """K1's pair movement with swaps for butterflies: each polynomial
+    reversed."""
+    _logn(a)
+    if native.route(a) == "cpu":
+        return a.flip(-1)
+    return _launch("moves", a)

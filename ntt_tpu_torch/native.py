@@ -42,6 +42,11 @@ _FWD_COLS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P]
 _FWD_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _P]
 _INV_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P]
 _INV_COLS = [_P, _P, _P, _P, _U64, _U64, _U64, _U64, _U64, _I, _I, _I, _I, _I, _P]
+_FWD_V2 = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _P]
+_FWD_V3 = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P]
+_DIAG = [_P, _P, _I, _I, _P]
+_DIAG_MUL = [_P, _P, _U64, _I, _I, _I, _P]
+_DIAG_MATH = [_P, _P, _P, _P, _U64, _I, _I, _I, _P]
 SIGNATURES = {
     "ntt_fwd_fused_u32": _FUSED_FWD,
     "ntt_fwd_fused_u64": _FUSED_FWD,
@@ -51,7 +56,10 @@ SIGNATURES = {
     "ntt_mul_mod_u64": _MUL_MOD,
     **{f"ntt_{k}_u{w}": sig for w in (32, 64)
        for k, sig in (("fwd_cols", _FWD_COLS), ("fwd_rows", _FWD_ROWS),
-                      ("inv_rows", _INV_ROWS), ("inv_cols", _INV_COLS))},
+                      ("inv_rows", _INV_ROWS), ("inv_cols", _INV_COLS),
+                      ("fwd_fused_v2", _FWD_V2), ("fwd_fused_v3", _FWD_V3),
+                      ("diag_copy", _DIAG), ("diag_mul", _DIAG_MUL),
+                      ("diag_math", _DIAG_MATH), ("diag_moves", _DIAG))},
 }
 
 

@@ -1,0 +1,196 @@
+"""The lab's kernels (ntt_tpu_torch.kernels.fused_lab: L1, L2;
+ntt_tpu_torch.kernels.probes: L3) on the CPU route against the Pallas lab
+(tools/pallas_lab.py) in interpret mode, and the lab harness
+(python -m ntt_tpu_torch.lab) on the CPU.
+
+At m = 6, batch 8, inputs below 4q made by numpy from a seed, a word-32 q
+(NttParams.generate(27, 6)) and a word-64 q (bench_params(6, 62)), both
+through from_fields.  Each JAX call runs once (cached per width and
+arguments); the cases spread strict / lazy, the two groupings, the kept
+transposed layout and the splits n1_log 3 and 2 over the calls, fewer at
+word 64, where an interpret-mode call costs several seconds.  Exact
+equality throughout."""
+
+import functools
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from ntt_tpu.kernels import elems as jel
+from ntt_tpu.params import NttParams as JNttParams
+from ntt_tpu.params import bench_params as jbench_params
+from ntt_tpu.plan import get_plan as jax_get_plan
+from ntt_tpu_torch import lab
+from ntt_tpu_torch import modmath as mm
+from ntt_tpu_torch.kernels import fused, fused_lab, pointwise, probes, twopass
+from ntt_tpu_torch.params import from_fields
+from ntt_tpu_torch.plan import get_plan
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+_spec = importlib.util.spec_from_file_location("pallas_lab", REPO / "tools/pallas_lab.py")
+jlab = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(jlab)
+
+M, BATCH = 6, 8
+WIDTHS = {"w32": JNttParams.generate(27, M), "w64": jbench_params(M, 62)}
+# (width, group, strict, n1_log): n1_log 3 leaves a radix-2 tail round in
+# both phases, 2 none
+V2_CASES = [("w32", 1, True, 3), ("w32", 1, False, 2), ("w32", 2, True, 2),
+            ("w32", 2, False, 3), ("w64", 1, False, 3), ("w64", 2, True, 2)]
+# (width, strict, keep_transposed, n1_log)
+V3_CASES = [("w32", True, False, 3), ("w32", False, False, 2), ("w32", True, True, 2),
+            ("w64", False, False, 3), ("w64", True, True, 2)]
+PROBES = ["copy", "mul", "math", "moves"]
+
+
+class Width:
+    """One width's params on both sides, its input, and the JAX reps."""
+
+    def __init__(self, jp):
+        self.jp = jp
+        self.plan = get_plan(from_fields(jp))
+        self.jplan = jax_get_plan(jp)
+        self.jops = jel.U32Ops if self.plan.word == 32 else jel.U64Ops
+        self.wc = self.jplan.w_con32 if self.plan.word == 32 else self.jplan.w_con
+        rng = np.random.default_rng(30 + self.plan.word)
+        self.a = rng.integers(0, 4 * jp.q, size=(BATCH, jp.n), dtype=np.uint64)
+        self.rep = self.jops.from_host(self.a)
+
+    def port(self, a=None):
+        return mm.from_host(self.a if a is None else a, self.jp.q, "cpu")
+
+    def jhost(self, rep):
+        return self.jops.to_host(rep)
+
+    def tables(self, n1_log):
+        return self.jplan.pallas_tables(False, n1_log, self.jops.nlimb)
+
+
+@functools.lru_cache(maxsize=None)
+def get_width(name):
+    return Width(WIDTHS[name])
+
+
+@functools.lru_cache(maxsize=None)
+def jax_v2(name, group, strict, n1_log, use_scratch=True):
+    """One call of the Pallas L1 (each runs once in the module)."""
+    w = get_width(name)
+    return w.jhost(jlab.fwd_fused_v2(w.rep, w.jops, w.tables(n1_log), w.jp.q, n1_log,
+                                     group=group, strict=strict, use_scratch=use_scratch,
+                                     interpret=True))
+
+
+@functools.lru_cache(maxsize=None)
+def jax_v3(name, strict, keep_t, n1_log):
+    """One call of the Pallas L2, with its Stockham tables."""
+    w = get_width(name)
+    tabs = jlab.build_tables_v3(w.jplan.w, w.wc, 1 << n1_log, w.jp.n >> n1_log,
+                                w.jops.nlimb)
+    return w.jhost(jlab.fwd_fused_v3(w.rep, w.jops, tabs, w.jp.q, n1_log, strict=strict,
+                                     keep_transposed=keep_t, interpret=True))
+
+
+@pytest.fixture(scope="module", params=sorted(WIDTHS))
+def width(request):
+    return get_width(request.param)
+
+
+@pytest.fixture(scope="module")
+def jax_probes(width):
+    """The four Pallas probes, with pl.pallas_call in interpret mode for the
+    duration of the calls (_diag_call takes no interpret flag)."""
+    n1_log = 3
+    n1, n2, tabs = 1 << n1_log, width.jp.n >> n1_log, width.tables(n1_log)
+    rounds = 2 if width.plan.word == 64 else 6
+    calls = {
+        "copy": lambda: jlab.diag_copy(width.rep, tabs, n1, n2, BATCH),
+        "mul": lambda: jlab.diag_mul(width.rep, tabs, probes.N_MULTS, n1, n2, BATCH),
+        "math": lambda: jlab.diag_math(width.rep, width.jops, tabs, width.jp.q, rounds, n1,
+                                       n2, BATCH),
+        "moves": lambda: jlab.diag_moves(width.rep, tabs, None, n1, n2, BATCH),
+    }
+    orig = pl.pallas_call
+    pl.pallas_call = functools.partial(orig, interpret=True)
+    try:
+        return rounds, {k: width.jhost(f()) for k, f in calls.items()}
+    finally:
+        pl.pallas_call = orig
+
+
+@pytest.mark.parametrize("case", V2_CASES, ids=lambda c: f"{c[0]}-group{c[1]}-"
+                         f"{'strict' if c[2] else 'lazy'}-n1_log{c[3]}")
+def test_fwd_fused_v2_matches_pallas_lab(case):
+    name, group, strict, n1_log = case
+    w = get_width(name)
+    got = fused_lab.fwd_fused_v2(w.port(), w.plan, n1_log, group, strict)
+    np.testing.assert_array_equal(mm.to_host(got), jax_v2(*case))
+
+
+def test_pallas_lab_scratch_pair_changes_no_bit():
+    """use_scratch is a Mosaic live-range lever: the same bits without it,
+    so the port has no counterpart."""
+    np.testing.assert_array_equal(jax_v2("w32", 2, True, 2, use_scratch=False),
+                                  jax_v2("w32", 2, True, 2))
+
+
+@pytest.mark.parametrize("case", V3_CASES, ids=lambda c: f"{c[0]}-"
+                         f"{'strict' if c[1] else 'lazy'}{'-keep_t' if c[2] else ''}"
+                         f"-n1_log{c[3]}")
+def test_fwd_fused_v3_matches_pallas_lab(case):
+    name, strict, keep_t, n1_log = case
+    w = get_width(name)
+    got = fused_lab.fwd_fused_v3(w.port(), w.plan, n1_log, strict, keep_t)
+    np.testing.assert_array_equal(mm.to_host(got), jax_v3(*case))
+
+
+@pytest.mark.parametrize("probe", PROBES)
+def test_probe_matches_pallas_lab(width, jax_probes, probe):
+    """The whole batch against the Pallas probe, and a batch of 3 (no
+    multiple of a tile) against its first rows."""
+    rounds, want = jax_probes
+    run = {"copy": probes.diag_copy, "mul": probes.diag_mul,
+           "math": lambda x: probes.diag_math(x, width.plan, rounds),
+           "moves": probes.diag_moves}[probe]
+    np.testing.assert_array_equal(mm.to_host(run(width.port())), want[probe])
+    np.testing.assert_array_equal(mm.to_host(run(width.port(width.a[:3]))), want[probe][:3])
+
+
+def test_l1_l2_equal_k1_and_refuse_bad_arguments(width):
+    x = width.port()
+    k1 = fused.fwd_fused(x, width.plan, strict=False)
+    for n1_log in range(1, M + 1):
+        assert torch.equal(fused_lab.fwd_fused_v2(x, width.plan, n1_log, 2, False), k1)
+        assert torch.equal(fused_lab.fwd_fused_v3(x, width.plan, n1_log, False), k1)
+    with pytest.raises(ValueError):
+        fused_lab.fwd_fused_v2(x, width.plan, 3, group=3)
+    with pytest.raises(ValueError):
+        fused_lab.fwd_fused_v3(x, width.plan, M + 1)
+    with pytest.raises(ValueError):
+        probes.diag_copy(x[..., :48])
+
+
+def test_lab_main_on_cpu_checks_every_candidate_and_launches_nothing(capsys):
+    counts = (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES, fused_lab.LAUNCHES,
+              probes.LAUNCHES)
+    for c in counts:
+        for k in c:
+            c[k] = 0
+    records = lab.main(["--device", "cpu", "--m", "8", "--batch", "8", "--no-time",
+                        "--cases", "both"])
+    assert [(r["case"], r["name"]) for r in records] == [
+        (case, name) for case in ("u32", "u64") for name in lab.CANDIDATES]
+    assert all(r["exact"] and r["us_per_transform"] is None for r in records)
+    assert all(set(c.values()) == {0} for c in counts)
+    out = capsys.readouterr().out
+    assert out.count("bit-exact") == 2 * len(lab.CANDIDATES)
+
+
+def test_lab_default_device_is_cuda_and_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        lab.main(["--m", "8", "--batch", "8", "--no-time"])
