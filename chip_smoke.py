@@ -14,41 +14,51 @@ Phases, each of which raises on failure (nothing is caught):
    the card and require each output to equal, bit for bit, the plain
    PyTorch version run on the same CUDA tensors; check two rows of each
    against exact big-int arithmetic on the host;
-4. main path within one block: with every launch count set to 0, the HE
-   batch of 1024 polynomials through api.negacyclic_mul and a batch-128
-   round trip inv_ntt(fwd_ntt(a)) == a, at both widths; the products must
-   equal the plain path's and, at sampled coefficients, the schoolbook
-   negacyclic convolution; K1, K2 and K3 must have been launched;
-5. two-pass kernels vs plain: K4 (fwd_cols), K5 (fwd_rows, strict and
+4. K1 / K2 at every size they serve: at both widths and every m from 1 to
+   fused.max_logn(word) (14 at word 64, 15 at word 32), batch 3, and at
+   m = 14 batch 500 (more than one wave of blocks), K1 strict and lazy on
+   inputs below 4q and K2 equal to their plain versions, bit for bit; K2
+   with a final-stage constant one bit wider than the word at m = 3 (N
+   below the 16 words a thread holds) and m = 14;
+5. main path within one block: with every launch count set to 0, the HE
+   batch of 1024 polynomials through api.negacyclic_mul, a batch-128
+   round trip inv_ntt(fwd_ntt(a)) == a at both widths, and the reference
+   fixtures 0 to 14 (m 8-15) through 'auto'; the products must equal the
+   plain path's and, at sampled coefficients, the schoolbook negacyclic
+   convolution, the fixtures' forwards the plain path's and the NTT by
+   definition at sampled outputs; K1, K2 and K3 must have been launched;
+6. two-pass kernels vs plain: K4 (fwd_cols), K5 (fwd_rows, strict and
    lazy, both output layouts), K6 (inv_rows, both input layouts) and K7
    (inv_cols, also with a final-stage constant one bit wider than the
    word) against their plain versions, bit for bit, at N = 2^16 batch 128
    and N = 2^20 batch 16 at both widths and N = 2^24 batch 1 at 62 bits;
    at N = 2^16 two rows of the forward against the NTT by its definition;
-6. main path beyond one block: with every launch count set to 0, the CKKS
+7. main path beyond one block: with every launch count set to 0, the CKKS
    product of 128 residue polynomials at N = 2^16 (both widths), round
    trips at N = 2^20 (batch 16, both widths) and N = 2^24 (batch 1), and
    the reference fixtures 15 to 18 through 'auto'; products equal to the
    plain path's and to the schoolbook product at sampled coefficients,
    round trips exact; K4 to K7 must have been launched at both widths;
-7. lab kernels vs plain: at N = 2^14, batch 32, n1_log 7 (and 4), both
+8. lab kernels vs plain: at N = 2^14, batch 32, n1_log 7 (and 4), both
    widths, inputs below 4q: L1 (fwd_fused_v2, two-stage and one-stage
    rounds, strict and lazy), L2 (fwd_fused_v3, strict, lazy, kept
    transposed) and the four L3 probes against their plain versions, bit
    for bit;
-8. the lab path: with every launch count set to 0,
+9. the lab path: with every launch count set to 0,
    ``python -m ntt_tpu_torch.lab --cases both --no-time`` (N = 2^14, batch
-   512): every transform candidate equal to the plain six-step and to K1's
-   output, every probe to its plain version; K1 and every L1 / L2 / L3
-   kernel must have been launched at both widths;
-9. times: CUDA events, warm-up, minimum over repetitions, kernel and plain
+   512): every forward candidate equal to the plain six-step and to K1's
+   output, K2 to the plain inverse, every probe to its plain version; K1
+   and every L1 / L2 / L3 kernel must have been launched at both widths;
+10. times: CUDA events, warm-up, minimum over repetitions, kernel and plain
    version in turns, beside the card's name and power limit; each kernel's
    bound, the larger of its bytes over the memory rate and its integer
-   multiplies over the multiply rate.  The lab kernels and K1 at the lab's
-   shape are timed as the lab times them (a CUDA graph of launches, so the
-   host's launch overhead stays out), their plain versions at batch 32,
-   and diag_copy's and diag_moves's one-call PyTorch equivalents
-   (``clone``, ``flip``) as the lab kernels are timed.
+   multiplies over the multiply rate.  K1 / K2 also at every m from 10 to
+   max_logn(word) at 2^24 words a call, beside their bounds, and the lab
+   kernels and K1 at the lab's shape, are timed as the lab times them (a
+   CUDA graph of launches, so the host's launch overhead stays out); the
+   lab kernels' plain versions at batch 32, and diag_copy's and
+   diag_moves's one-call PyTorch equivalents (``clone``, ``flip``) as the
+   lab kernels are timed.
 
 The last two lines before the final one are the nvidia-smi line and the
 kernel table as JSON; the final line is
@@ -72,7 +82,11 @@ CASES = ("q62", "q29")  # bench_params(14, 62) and FIXTURES[9] (q = 0x1FFC8001)
 # m20 / m24: the single-GPU sizes of BASELINE.json configs[4]
 TWO_PASS = (("m16-q62", 128), ("m16-q29", 128), ("m20-q62", 16), ("m20-q29", 16),
             ("m24-q62", 1))
+FIXTURES_WITHIN = tuple(range(15))  # m 8-15: 'auto' is pallas-fused (K1 / K2)
 FIXTURES_BEYOND = (15, 16, 17, 18)
+BATCH_EVERY_M = 3  # K1 / K2 at every m: a small odd batch
+BATCH_WAVES = 500  # and at m14 more polynomials than one wave of blocks
+WORDS_PER_M = 1 << 24  # K1 / K2 timed at m 10-14 (15) at this many words a call
 CSRC = "ntt_tpu_torch/csrc/"
 LAB = "tools/pallas_lab.py:"
 LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
@@ -268,13 +282,46 @@ def main() -> int:
                                          "from the schoolbook convolution")
         return ks
 
-    def note(name, got, want, what):
+    def note(name, got, want, what, quiet=False):
         err = max_abs_err(np, mm.to_host(got), mm.to_host(want))
         if not torch.equal(got, want):
             raise AssertionError(f"{what}: kernel differs from the plain version "
                                  f"(max abs err {err})")
         errs[name] = max(errs.get(name, 0), err)
-        print(f"  {what}: equal to plain ({tuple(got.shape)})", flush=True)
+        if not quiet:
+            print(f"  {what}: equal to plain ({tuple(got.shape)})", flush=True)
+
+    def check_fixtures(inputs, fwd, back):
+        """Reference fixtures through 'auto': the forward equal to the plain
+        path and, at sampled outputs of two rows, to the NTT by definition;
+        the round trip exact."""
+        for i, a in inputs.items():
+            p = FIXTURES[i]
+            plan, ops = get_plan(p), pick_ops(p.q)
+            tabs = plan.device_tables(dev)
+            if not torch.equal(fwd[i], sixstep.fwd_sixstep(a, ops, tabs.w, tabs.w_con, p.q)):
+                raise AssertionError(f"fixture {i}: fwd_ntt differs from the plain path")
+            if not torch.equal(back[i], a):
+                raise AssertionError(f"fixture {i}: inv_ntt(fwd_ntt(a)) != a")
+            js = check_ntt_rows(p, a, fwd[i], fwd[i], f"fixture {i}")
+            print(f"  fixture {i} (m {p.m}, q {p.q:#x}): fwd_ntt equals the plain path and, "
+                  f"at outputs {js} of two rows, the NTT by definition; round trip exact",
+                  flush=True)
+
+    def wide_inv(p, plan, f):
+        """K2 launched directly with a lazy final-stage constant in [q, 2q),
+        whose Shoup constant is one bit wider than the word (no params give
+        one: tmp = n_inv * w_inv[1] lands below q), and its plain version."""
+        ops, tabs, inv_c = pick_ops(p.q), plan.device_tables(dev), plan.inv_consts
+        tmp_w = p.q + p.q // 3
+        con_w = (tmp_w << plan.word) // p.q
+        out = torch.empty_like(f)
+        native.launch(f"inv_fused_u{plan.word}", f.data_ptr(), out.data_ptr(),
+                      tabs.w_inv.data_ptr(), tabs.w_inv_con.data_ptr(), p.q, inv_c[0],
+                      inv_c[1], tmp_w, con_w & ((1 << plan.word) - 1), con_w >> plan.word,
+                      f.shape[0], p.m, native.stream(dev))
+        return out, sixstep.inv_sixstep(f, ops, tabs.w_inv, tabs.w_inv_con, inv_c[0],
+                                        inv_c[1], tmp_w, con_w, p.q)
 
     phase(f"kernel vs plain, batch {BATCH_CHECK}")
     for case in CASES:
@@ -297,19 +344,7 @@ def main() -> int:
              f"{case} K2 inv_fused")
         if not torch.equal(k2, a):
             raise AssertionError(f"{case}: inv_fused(fwd_fused(a)) != a")
-        # K2's branch for a final-stage Shoup constant one bit wider than the
-        # word: no params produce one (tmp = n_inv * w_inv[1] lands below q),
-        # so the launcher is driven directly with a lazy tmp in [q, 2q)
-        tmp_w = p.q + 12345
-        con_w = (tmp_w << plan.word) // p.q
-        wide = torch.empty_like(k1)
-        native.launch(f"inv_fused_{word}", k1.data_ptr(), wide.data_ptr(),
-                      tabs.w_inv.data_ptr(), tabs.w_inv_con.data_ptr(), p.q, inv_c[0],
-                      inv_c[1], tmp_w, con_w & ((1 << plan.word) - 1),
-                      con_w >> plan.word, BATCH_CHECK, p.m, native.stream(dev))
-        note(f"inv_fused_{word}", wide,
-             sixstep.inv_sixstep(k1, ops, tabs.w_inv, tabs.w_inv_con, inv_c[0], inv_c[1],
-                                 tmp_w, con_w, p.q),
+        note(f"inv_fused_{word}", *wide_inv(p, plan, k1),
              f"{case} K2 inv_fused with a {plan.word + 1}-bit final constant")
         k3 = pointwise.mul_mod(a, b, p.q)
         note(f"mul_mod_{word}", k3, ops.mul_mod(a, b, p.q), f"{case} K3 mul_mod")
@@ -322,9 +357,45 @@ def main() -> int:
               "NTT by definition; K3 rows match Python ints; inv_fused(fwd_fused(a)) == a",
               flush=True)
 
-    phase(f"main path: negacyclic_mul at batch {BATCH_HE}, round trip at batch {BATCH_CHECK}")
+    def every_m(word):
+        """(m, params) for every m K1 / K2 serve at a width: the 62-bit bench q
+        at word 64, a 29-bit q at word 32."""
+        for m in range(1, fused.max_logn(word) + 1):
+            yield m, bench_params(m, 62) if word == 64 else NttParams.generate(29, m)
+
+    phase(f"K1 / K2 vs plain at every m they serve (batch {BATCH_EVERY_M}), and at m14 "
+          f"batch {BATCH_WAVES}")
+    for word in (64, 32):
+        done = []
+        for m, p in every_m(word):
+            plan, ops = get_plan(p), pick_ops(p.q)
+            tabs = plan.device_tables(dev)
+            for batch in (BATCH_EVERY_M, BATCH_WAVES) if m == 14 else (BATCH_EVERY_M,):
+                a = rand(p, batch, hi=4 * p.q)
+                tag = f"w{word} m{m} b{batch}"
+                for strict in (True, False):
+                    note(f"fwd_fused_u{word}", fused.fwd_fused(a, plan, strict),
+                         sixstep.fwd_sixstep(a, ops, tabs.w, tabs.w_con, p.q, strict=strict),
+                         f"{tag} K1 {'strict' if strict else 'lazy'}, input < 4q", quiet=True)
+                f = sixstep.fwd_sixstep(a, ops, tabs.w, tabs.w_con, p.q)
+                k2 = fused.inv_fused(f, plan)
+                note(f"inv_fused_u{word}", k2,
+                     sixstep.inv_sixstep(f, ops, tabs.w_inv, tabs.w_inv_con, *plan.inv_consts,
+                                         p.q), f"{tag} K2", quiet=True)
+                if m in (3, 14):
+                    note(f"inv_fused_u{word}", *wide_inv(p, plan, f),
+                         f"{tag} K2 with a {word + 1}-bit final constant", quiet=True)
+                done.append(tag)
+                del a, f, k2
+        print(f"  w{word}: K1 (strict, lazy, inputs < 4q) and K2 equal to plain at "
+              f"{', '.join(done)}; K2 with a {word + 1}-bit final constant at m3 and m14",
+              flush=True)
+
+    phase(f"main path: negacyclic_mul at batch {BATCH_HE}, round trip at batch {BATCH_CHECK}, "
+          f"fixtures {FIXTURES_WITHIN[0]}-{FIXTURES_WITHIN[-1]} through 'auto'")
     he = {case: (rand(params[case], BATCH_HE), rand(params[case], BATCH_HE)) for case in CASES}
     rt = {case: rand(params[case], BATCH_CHECK) for case in CASES}
+    fx = {i: rand(FIXTURES[i], 4) for i in FIXTURES_WITHIN}
     torch.cuda.synchronize()
     for counts in (fused.LAUNCHES, pointwise.LAUNCHES):
         for k in counts:
@@ -334,6 +405,8 @@ def main() -> int:
         p = params[case]
         prod[case] = api.negacyclic_mul(*he[case], p)
         back[case] = api.inv_ntt(api.fwd_ntt(rt[case], p), p)
+    fwd_fx = {i: api.fwd_ntt(a, FIXTURES[i]) for i, a in fx.items()}
+    back_fx = {i: api.inv_ntt(f, FIXTURES[i]) for i, f in fwd_fx.items()}
     torch.cuda.synchronize()
     launches = {**fused.LAUNCHES, **pointwise.LAUNCHES}
     print(f"  launch counts of the main path: {launches}", flush=True)
@@ -362,6 +435,8 @@ def main() -> int:
               f"coefficients {ks} of two rows, the schoolbook product; round trip "
               f"{tuple(rt[case].shape)} exact", flush=True)
         del want
+    check_fixtures(fx, fwd_fx, back_fx)
+    del fx, fwd_fx, back_fx
 
     tp_params = {"m16-q62": bench_params(16, 62), "m16-q29": NttParams.generate(29, 16),
                  "m20-q62": bench_params(20, 62), "m20-q29": NttParams.generate(29, 20),
@@ -466,18 +541,7 @@ def main() -> int:
         if not torch.equal(back2[s], a):
             raise AssertionError(f"{s}: inv_ntt(fwd_ntt(a)) != a")
         print(f"  {s}: round trip {tuple(a.shape)} exact", flush=True)
-    for i, a in fx2.items():
-        p = FIXTURES[i]
-        plan, ops = get_plan(p), pick_ops(p.q)
-        tabs = plan.device_tables(dev)
-        if not torch.equal(fwd2[i], sixstep.fwd_sixstep(a, ops, tabs.w, tabs.w_con, p.q)):
-            raise AssertionError(f"fixture {i}: fwd_ntt differs from the plain path")
-        if not torch.equal(back_fx[i], a):
-            raise AssertionError(f"fixture {i}: inv_ntt(fwd_ntt(a)) != a")
-        js = check_ntt_rows(p, a, fwd2[i], fwd2[i], f"fixture {i}")
-        print(f"  fixture {i} (m {p.m}, q {p.q:#x}): fwd_ntt equals the plain path and, at "
-              f"outputs {js} of two rows, the NTT by definition; round trip exact",
-              flush=True)
+    check_fixtures(fx2, fwd2, back_fx)
     del prod2, back2, fwd2, back_fx, fx2
 
     lab_cases = ("u32", "u64")
@@ -600,6 +664,26 @@ def main() -> int:
           f"sixstep (K4 + K5) {s_ms * 1e3:.1f} us", flush=True)
     del he, rt
 
+    # K1 / K2 at every m from 10 up, 2^24 words a call, beside their bounds;
+    # device time from a CUDA graph of launches, as the lab times (a lone
+    # call between two events can include the host's enqueue)
+    for word in (64, 32):
+        for m, p in every_m(word):
+            if m < 10:
+                continue
+            plan = get_plan(p)
+            batch = WORDS_PER_M >> m
+            a = rand(p, batch)
+            f = fused.fwd_fused(a, plan)
+            k1_ms = lab.cuda_us(lambda x: fused.fwd_fused(x, plan), a, 3, lab.INNER) / 1e3
+            k2_ms = lab.cuda_us(lambda x: fused.inv_fused(x, plan), f, 3, lab.INNER) / 1e3
+            b1, _ = bound(*kernel_work("fwd_fused", m, m, batch, word))
+            b2, _ = bound(*kernel_work("inv_fused", m, m, batch, word))
+            print(f"  w{word} m{m} batch {batch}: K1 {k1_ms * 1e3:.1f} us (bound "
+                  f"{b1 * 1e3:.1f}, {b1 / k1_ms:.0%}), K2 {k2_ms * 1e3:.1f} us (bound "
+                  f"{b2 * 1e3:.1f}, {b2 / k2_ms:.0%})", flush=True)
+            del a, f
+
     for size, batch in TWO_PASS:
         p, plan, ops, tabs, n1, word = two_pass_ops(size)
         a = rand(p, batch)
@@ -658,7 +742,7 @@ def main() -> int:
         k1_ms = lab.cuda_us(cands["v1"].fn, x, 5, lab.INNER) / 1e3
         parts = {}
         for cand_name, cand in cands.items():
-            if cand_name == "v1":
+            if cand_name in ("v1", "i1"):
                 continue
             # plain, kernel, kernel, plain
             p1 = cuda_ms(torch, lambda: cand.plain(small), 2)

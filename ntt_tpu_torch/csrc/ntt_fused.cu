@@ -1,127 +1,68 @@
-// The whole negacyclic NTT of one polynomial held in shared memory, forward
-// (K1) and inverse (K2), at word 32 (q < 2^30) and word 64 (q < 2^62).
+// The whole negacyclic NTT of one polynomial in one block, forward (K1) and
+// inverse (K2), at word 32 (q < 2^30) and word 64 (q < 2^62).
 //
-// K1 fwd_fused_kernel replaces the Pallas kernel _fwd_kernel
-// (ntt_tpu/kernels/pallas_fused.py:230); K2 inv_fused_kernel replaces
-// _inv_kernel (:257), the whole inverse in one residency (the JAX word-64
-// inverse splits it into _inv_rows_kernel (:286) + _inv_cols_kernel (:307),
-// which K6 / K7 of ntt_sixstep.cu port as separate launches).
+// K1 rounds_kernel<T, ..., false> (rounds.cuh) replaces the Pallas kernel
+// _fwd_kernel (ntt_tpu/kernels/pallas_fused.py:230); K2 rounds_kernel<T, ...,
+// true> replaces _inv_kernel (:257), the whole inverse in one residency
+// (the JAX word-64 inverse splits it into _inv_rows_kernel (:286) +
+// _inv_cols_kernel (:307), which K6 / K7 of ntt_sixstep.cu port as separate
+// launches).
 //
-// What bounds them on an H100: each butterfly stage reads and writes all N
-// coefficients of shared memory once and needs a block-wide barrier, and each
-// butterfly costs a Shoup multiply (two 64x64 products at word 64).  Device
-// memory sees each coefficient twice (one load, one store) plus the twiddle
-// tables, which all blocks share and which stay resident in L2 (2 x N words).
-// At N = 2^14 and word 64 the polynomial is 128 KB: one block per SM.
+// What bounds them on an H100: device memory sees each coefficient twice (one
+// load, one store) plus the twiddle tables, which all blocks share and which
+// stay resident in L2; each butterfly costs a Shoup multiply (two 64x64
+// products at word 64).  Their first design ran log2 N radix-2 stages as
+// passes over shared memory with a barrier after each (the lab's L1 at one
+// stage a round, v2-r2, keeps that structure): at N = 2^14 those passes and
+// barriers were a third of the time, one scalar load a thread and a separate
+// store pass left device memory at 65 % of its rate, and every butterfly
+// read its own twiddle pair.
 //
-// Design: one block per polynomial; the N coefficients are loaded once into
-// dynamic shared memory, all log2 N radix-2 stages run there with one
-// __syncthreads() between stages, and the result is stored once.  The
-// Pallas kernels' pre-broadcast (stage, rows, lanes) twiddle stacks exist
-// only because Mosaic cannot reshape across lanes; here every butterfly
-// reads w[m + g] / w_con[m + g] straight from the flat N-entry tables.  The
-// flat Harvey stages give the same bits as the six-step phases of the plain
-// version (kernels/sixstep.py) and of the Pallas kernels: every coefficient
-// meets the same butterflies with the same twiddles.
+// Design (rounds.cuh): each thread holds 16 coefficients in registers and
+// runs four stages on them with no barrier; the block exchanges the
+// polynomial through padded shared memory only between rounds (three
+// exchanges at N = 2^14, where the first design had fourteen passes).  The
+// forward's first round reads device memory straight into registers at
+// stride N/16, coalesced, and its last round (stride 1) goes through shared
+// memory once more so that the store is coalesced 16-byte writes; the
+// inverse's first round reads 16 consecutive words a thread and its last
+// round stores its fused final stage straight from registers, coalesced.  A
+// thread reads each twiddle pair its round needs once, with 16-byte loads.
+// Warps that have their words compute while later warps still load.  The
+// design point (Fused<T>, rounds.cuh): 512 threads a block, two groups of
+// 16 a thread at N = 2^14; at word 32 at most 64 registers a thread, so two
+// blocks share an SM and one polynomial's loads overlap another's
+// arithmetic; at word 64 the polynomial's 136 KB of shared memory allow one
+// block an SM.  PERF.md's lever table holds what each choice was measured
+// to cost against the others.  What bounds the design at word 64 is the
+// butterflies (29 SASS instructions each, 57 for the fused final stage)
+// against device memory at one block an SM: one polynomial's loads overlap
+// only its own arithmetic.
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
-#include "poly_block.cuh"
+#include "rounds.cuh"
 
 namespace ntt {
 
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-fwd_fused_kernel(const T* __restrict__ in, T* __restrict__ out,
-                 const T* __restrict__ w, const T* __restrict__ w_con, T q,
-                 int logn, int strict) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a = reinterpret_cast<T*>(smem_raw);
-  const int n = 1 << logn;
-  const int half = n >> 1;
-  const size_t base = (size_t)blockIdx.x << logn;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = in[base + i];
-  __syncthreads();
-
-  for (int s = 0; s < logn; ++s) {
-    const int m = 1 << s;
-    const int lt = logn - 1 - s;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const StageIndex ix(j, lt);
-      T x = a[ix.i0];
-      T y = a[ix.i1];
-      fwd_bfly<T>(x, y, __ldg(w + m + ix.g), __ldg(w_con + m + ix.g), q);
-      a[ix.i0] = x;
-      a[ix.i1] = y;
-    }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const T v = a[i];
-    out[base + i] = strict ? reduce_4q_to_q<T>(v, q) : v;
-  }
+int launch_fwd(const void* in, void* out, const void* w, const void* w_con, u64 q,
+               int batch, int logn, int strict, void* stream) {
+  return launch_rounds<T, false>(in, out, w, w_con, q, FinalConsts<T>{}, batch, logn, strict,
+                                 stream);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-inv_fused_kernel(const T* __restrict__ in, T* __restrict__ out,
-                 const T* __restrict__ w, const T* __restrict__ w_con, T q,
-                 FinalConsts<T> fc, int logn) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a = reinterpret_cast<T*>(smem_raw);
-  const int n = 1 << logn;
-  const int half = n >> 1;
-  const size_t base = (size_t)blockIdx.x << logn;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x) a[i] = in[base + i];
-  __syncthreads();
-
-  // Gentleman-Sande stages m = N/2 .. 2 (t = 1 .. N/4)
-  for (int s = logn - 1; s >= 1; --s) {
-    const int m = 1 << s;
-    const int lt = logn - 1 - s;
-    for (int j = threadIdx.x; j < half; j += blockDim.x) {
-      const StageIndex ix(j, lt);
-      T x = a[ix.i0];
-      T y = a[ix.i1];
-      bkw_bfly<T>(x, y, __ldg(w + m + ix.g), __ldg(w_con + m + ix.g), q);
-      a[ix.i0] = x;
-      a[ix.i1] = y;
-    }
-    __syncthreads();
-  }
-
-  // fused final stage (t = N/2), stored straight to device memory
-  for (int j = threadIdx.x; j < half; j += blockDim.x) {
-    T x = a[j];
-    T y = a[j + half];
-    bkw_final<T>(x, y, fc, q);
-    out[base + j] = x;
-    out[base + j + half] = y;
-  }
-}
-
-template <typename T>
-int launch_fwd(const void* in, void* out, const void* w, const void* w_con,
-               u64 q, int batch, int logn, int strict, void* stream) {
-  return launch_per_poly<T>(fwd_fused_kernel<T>, batch, logn, stream, (const T*)in,
-                            (T*)out, (const T*)w, (const T*)w_con, (T)q, logn, strict);
-}
-
-template <typename T>
-int launch_inv(const void* in, void* out, const void* w, const void* w_con,
-               u64 q, u64 n_inv, u64 n_inv_con, u64 f_tmp, u64 f_con_lo,
-               int f_con_hi, int batch, int logn, void* stream) {
+int launch_inv(const void* in, void* out, const void* w, const void* w_con, u64 q,
+               u64 n_inv, u64 n_inv_con, u64 f_tmp, u64 f_con_lo, int f_con_hi, int batch,
+               int logn, void* stream) {
   FinalConsts<T> fc;
   fc.n_inv = (T)n_inv;
   fc.n_inv_con = (T)n_inv_con;
   fc.tmp = (T)f_tmp;
   fc.con_lo = (T)f_con_lo;
   fc.con_hi = f_con_hi;
-  return launch_per_poly<T>(inv_fused_kernel<T>, batch, logn, stream, (const T*)in,
-                            (T*)out, (const T*)w, (const T*)w_con, (T)q, fc, logn);
+  return launch_rounds<T, true>(in, out, w, w_con, q, fc, batch, logn, 0, stream);
 }
 
 }  // namespace ntt

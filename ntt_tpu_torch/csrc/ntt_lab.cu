@@ -1,18 +1,19 @@
-// The lab's two forward candidates, the same function as K1 (ntt_fused.cu)
-// with the stages grouped otherwise, at word 32 (q < 2^30) and word 64
+// The lab's forward candidates, the same function as K1 (ntt_fused.cu) with
+// the stages grouped otherwise, at word 32 (q < 2^30) and word 64
 // (q < 2^62), strict or lazy, in the standard or the kept-transposed layout.
 //
 //   L1 fwd_v2_kernel<T, G>  replaces _fwd_kernel_v2 (tools/pallas_lab.py:127,
 //       through fwd_fused_v2 :166).  The column phase (stages 0 .. log2 N1 - 1)
 //       and the row phase (the rest) each run in rounds of G stages:
-//       G = 1 is K1's radix-2 stage with one __syncthreads() a stage; G = 2
-//       lets each thread load four coefficients (c0, c1, c2, c3 a quarter of
-//       the group apart), run two stages on them in registers (the pairs
-//       (c0, c2), (c1, c3) under w[m + g], then (c0, c1) under w[2m + 2g] and
-//       (c2, c3) under w[2m + 2g + 1], the Pallas _round_r4 :67) and store
-//       them back in place, with one barrier a round: half the barriers and
-//       half the shared-memory traffic.  A phase with an odd stage count ends
-//       with a radix-2 round (make_rounds :93).
+//       G = 1 is K1's first design, a radix-2 stage with one __syncthreads()
+//       a stage; G = 2 lets each thread load four coefficients (c0, c1, c2,
+//       c3 a quarter of the group apart), run two stages on them in
+//       registers (the pairs (c0, c2), (c1, c3) under w[m + g], then
+//       (c0, c1) under w[2m + 2g] and (c2, c3) under w[2m + 2g + 1], the
+//       Pallas _round_r4 :67) and store them back in place, with one barrier
+//       a round: half the barriers and half the shared-memory traffic.  A
+//       phase with an odd stage count ends with a radix-2 round (make_rounds
+//       :93).
 //   L2 fwd_v3_kernel<T>  replaces _fwd_kernel_v3 (:326, through fwd_fused_v3
 //       :353): the Stockham constant-geometry flow.  Every stage pairs the
 //       contiguous halves of the phase's axis and writes the results
@@ -21,18 +22,18 @@
 //       w[2^s N1 + c 2^s + (i mod 2^s)] in the row phase (the Pallas
 //       stockham_col_stack / stockham_row_stack :277-298).
 //
-// Both take N = N1 * N2 viewed (N1, N2) in shared memory.  The Pallas
+// L1 and L2 take N = N1 * N2 viewed (N1, N2) in shared memory.  The Pallas
 // kernels transpose between the phases because Mosaic runs a phase along
 // sublanes; here the row phase indexes the (N1, N2) tile in place, and only
 // the kept-transposed store ((N2, N1) out) permutes.  Every coefficient meets
 // the flat radix-2 butterflies with the same twiddles, so the output is bit
 // for bit K1's and the plain six-step's at the same split (fused_lab.plain).
 //
-// What bounds them on an H100: as K1, the per-stage shared-memory traffic and
-// block-wide barriers of one polynomial a block (128 KB at N = 2^14, word
-// 64: one block per SM); device memory sees one load and one store of each
-// coefficient plus the twiddle tables from L2.  L1 at G = 2 halves the
-// barriers and the shared-memory round trips.
+// What bounds L1 and L2 on an H100: as K1's first design, the per-stage
+// shared-memory traffic and block-wide barriers of one polynomial a block
+// (128 KB at N = 2^14, word 64: one block per SM); device memory sees one
+// load and one store of each coefficient plus the twiddle tables from L2.
+// L1 at G = 2 halves the barriers and the shared-memory round trips.
 //
 // L2 is out of place: a stage reads both halves and writes the interleave
 // over them.  Two tiles (ping-pong) do not fit at N = 2^14, word 64
@@ -40,7 +41,7 @@
 // holds, so every stage goes through registers: each thread reads its pairs
 // (N/2 / threads of them, at most 64 bytes' worth of words), runs their
 // butterflies, waits at a barrier, writes the interleave, and waits again:
-// two barriers a stage where K1 has one.
+// two barriers a stage where L1 at G = 1 has one.
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"

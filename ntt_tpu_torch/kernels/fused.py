@@ -10,13 +10,18 @@ transform of a polynomial stays on chip, in one launch:
     ``_inv_cols_kernel`` (:307); K2 computes both in one residency, and
     the two-pass kernels K6 / K7 (``kernels/twopass.py``) port the two.
 
-What bounds them on an H100: one block holds one polynomial in shared
-memory (N words of 4 or 8 bytes; at most 227 KB a block), so N is capped
-at 2^14 at word 64 and 2^15 at word 32 (beyond that the two-pass
-kernels of ``kernels/twopass.py`` serve); each of the log2 N stages reads
-and writes all of it once behind a block-wide barrier, and each butterfly
-costs one Shoup multiply.  Device memory sees one load and one store per
-coefficient.  Design notes are in ``csrc/ntt_fused.cu``.
+What bounds them on an H100: one block holds one polynomial (N words of 4
+or 8 bytes in shared memory between rounds; at most 227 KB a block), so N
+is capped at 2^14 at word 64 and 2^15 at word 32 (beyond that the two-pass
+kernels of ``kernels/twopass.py`` serve).  Device memory sees one load
+and one store per coefficient; each butterfly costs one Shoup multiply,
+about 29 SASS instructions at word 64 and 9 at word 32, which makes the
+word-64 transform as much arithmetic as memory.  Their first design ran
+each of the log2 N stages as a pass over shared memory behind a barrier;
+the register rounds of ``csrc/rounds.cuh`` run 4 stages a round in
+registers (three exchanges through shared memory at N = 2^14), read
+device memory straight into registers and read each twiddle pair once a
+round.  Design notes are in ``csrc/ntt_fused.cu``.
 
 A wrapper runs the plain PyTorch version (``kernels/sixstep.py``) for a
 tensor on the CPU and the kernel for a tensor on a CUDA device; it never

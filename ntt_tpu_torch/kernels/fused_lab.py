@@ -1,5 +1,5 @@
-"""The lab's two forward candidates: CUDA kernels L1 / L2, their plain
-PyTorch versions and their wrappers.
+"""The lab's transform candidates: CUDA kernels L1 / L2, their plain PyTorch
+versions and their wrappers.
 
 The counterpart of the Pallas lab's transform kernels
 (``tools/pallas_lab.py``), the same function as K1 (``kernels/fused.py``):
@@ -24,7 +24,7 @@ natural order in, bit-reversed out, with the stages grouped otherwise.
     into the plan's flat tables; no pre-broadcast stack is built.
 
 Every coefficient meets the butterflies of the flat radix-2 transform with
-the same twiddles, so both give K1's bits, lazy representatives included,
+the same twiddles, so L1 and L2 give K1's bits, lazy representatives included,
 at any split; ``n1_log`` sets the round structure (where a phase ends) and
 the ``keep_transposed`` layout, (N2, N1).  Their plain version is
 therefore the plain six-step at the same split, ``plain`` below
@@ -57,6 +57,14 @@ def plain(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
     tabs = plan.device_tables(a.device)
     return sixstep.fwd_sixstep(a, pick_ops(plan.q), tabs.w, tabs.w_con, plan.q, n1_log,
                                strict, keep_transposed)
+
+
+def plain_inv(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
+    """The plain version of K2 in the lab: the plain inverse six-step
+    (``fused.inv_fused``'s CPU route) on a's device."""
+    tabs = plan.device_tables(a.device)
+    return sixstep.inv_sixstep(a, pick_ops(plan.q), tabs.w_inv, tabs.w_inv_con,
+                               *plan.inv_consts, plan.q, sixstep.balanced_split(plan.n))
 
 
 def _launch(name: str, count: str, a: torch.Tensor, plan: NttPlan, n1_log: int,

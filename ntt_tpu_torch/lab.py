@@ -1,5 +1,5 @@
-"""The kernel lab: forward-transform candidates and cost probes, each
-checked bit for bit and timed on the card.
+"""The kernel lab: transform candidates and cost probes, each checked bit
+for bit and timed on the card.
 
     python -m ntt_tpu_torch.lab [--cases u32|u64|both] [--batch 512] [--m 14]
                                 [--reps 3] [--only NAMES] [--no-time]
@@ -11,16 +11,20 @@ it runs on one batch of random polynomials below q:
 
   * ``v1``: K1 (``kernels.fused.fwd_fused``);
   * ``v2-r2`` / ``v2-r4``: L1 in rounds of one / two stages
-    (``kernels.fused_lab.fwd_fused_v2``);
+    (``kernels.fused_lab.fwd_fused_v2``); v2-r2 is K1's first design, one
+    radix-2 stage a pass over shared memory;
   * ``v3``: L2, the Stockham flow (``fused_lab.fwd_fused_v3``);
+  * ``i1``: K2 (``kernels.fused.inv_fused``);
   * ``diag-copy``, ``diag-math`` (m rounds), ``diag-moves``, ``diag-mul``
-    (42 multiplies): the L3 probes (``kernels.probes``), which split K1's
-    time into memory, arithmetic, movement and multiplies.
+    (42 multiplies): the L3 probes (``kernels.probes``), which split the
+    first K1 design's time into memory, arithmetic, movement and
+    multiplies.
 
 L1 and L2 run at the split N2 = 128 (``n1_log = m - 7``), as the Pallas lab.
-Every transform candidate must equal the plain six-step at that split
-(``kernels.fused_lab.plain``) and v1's output; every probe must equal
-its plain version on the same tensor.  A mismatch raises.  Times are device
+Every forward candidate must equal the plain six-step at that split
+(``kernels.fused_lab.plain``) and v1's output, i1 the plain inverse six-step
+(``fused_lab.plain_inv``); every probe must equal its plain version on the
+same tensor.  A mismatch raises.  Times are device
 times (``cuda_us``: a CUDA graph of ``INNER`` calls between two CUDA
 events, after two warm-up calls, the minimum over ``--reps``), printed per
 transform beside the card's name and power limit.
@@ -42,8 +46,8 @@ from ntt_tpu_torch.kernels import fused, fused_lab, probes
 from ntt_tpu_torch.params import NttParams, bench_params
 from ntt_tpu_torch.plan import NttPlan, get_plan
 
-CANDIDATES = ("v1", "v2-r2", "v2-r4", "v3", "diag-copy", "diag-math", "diag-moves",
-              "diag-mul")
+CANDIDATES = ("v1", "v2-r2", "v2-r4", "v3", "i1",
+              "diag-copy", "diag-math", "diag-moves", "diag-mul")
 CASES = {"u32": ("u32",), "u64": ("u64",), "both": ("u32", "u64")}
 INNER = 20  # launches a timed CUDA graph holds
 
@@ -60,31 +64,42 @@ def lab_split(m: int) -> int:
 
 class Candidate(NamedTuple):
     """One lab candidate: the call under test, its plain version on the same
-    input, and the kernel it launches (its LAUNCHES key less the width)."""
+    input (named by ``plain_label``), the kernel it launches (its LAUNCHES
+    key less the width), and whether its output must also equal v1's."""
 
     fn: Callable
     plain: Callable
     kernel: str
+    like_v1: bool = False
+    plain_label: str = "the plain six-step"
 
 
 def candidates(plan: NttPlan, n1_log: int) -> dict[str, Candidate]:
-    """name -> Candidate.  The transforms' plain version is the plain
-    six-step; a probe's is its own."""
+    """name -> Candidate.  The forward transforms' plain version is the
+    plain six-step and their output v1's; K2's the plain inverse six-step; a
+    probe's is its own."""
     m = plan.m
     six = lambda x: fused_lab.plain(x, plan, n1_log)  # noqa: E731
     return {
         "v1": Candidate(lambda x: fused.fwd_fused(x, plan), six, "fwd_fused"),
         "v2-r2": Candidate(lambda x: fused_lab.fwd_fused_v2(x, plan, n1_log, group=1), six,
-                           "fwd_fused_v2_r2"),
+                           "fwd_fused_v2_r2", True),
         "v2-r4": Candidate(lambda x: fused_lab.fwd_fused_v2(x, plan, n1_log, group=2), six,
-                           "fwd_fused_v2_r4"),
+                           "fwd_fused_v2_r4", True),
         "v3": Candidate(lambda x: fused_lab.fwd_fused_v3(x, plan, n1_log), six,
-                        "fwd_fused_v3"),
-        "diag-copy": Candidate(probes.diag_copy, lambda x: x.clone(), "diag_copy"),
+                        "fwd_fused_v3", True),
+        "i1": Candidate(lambda x: fused.inv_fused(x, plan),
+                        lambda x: fused_lab.plain_inv(x, plan), "inv_fused", False,
+                        "the plain inverse six-step"),
+        "diag-copy": Candidate(probes.diag_copy, lambda x: x.clone(), "diag_copy", False,
+                               "its plain version"),
         "diag-math": Candidate(lambda x: probes.diag_math(x, plan, m),
-                               lambda x: probes.plain_math(x, plan, m), "diag_math"),
-        "diag-moves": Candidate(probes.diag_moves, lambda x: x.flip(-1), "diag_moves"),
-        "diag-mul": Candidate(probes.diag_mul, probes.plain_mul, "diag_mul"),
+                               lambda x: probes.plain_math(x, plan, m), "diag_math", False,
+                               "its plain version"),
+        "diag-moves": Candidate(probes.diag_moves, lambda x: x.flip(-1), "diag_moves", False,
+                                "its plain version"),
+        "diag-mul": Candidate(probes.diag_mul, probes.plain_mul, "diag_mul", False,
+                              "its plain version"),
     }
 
 
@@ -138,14 +153,11 @@ def run_case(case: str, args, device: torch.device, where: str) -> list[dict]:
     for name in names:
         cand = cands[name]
         got = cand.fn(x)
-        if name.startswith("diag-"):
-            refs = {"its plain version": cand.plain(x)}
-        else:
-            refs = {"the plain six-step": cand.plain(x)}
-            if v1 is not None:
-                refs["v1 (K1)"] = v1
-            if name == "v1":
-                v1 = got
+        refs = {cand.plain_label: cand.plain(x)}
+        if cand.like_v1 and v1 is not None:
+            refs["v1 (K1)"] = v1
+        if name == "v1":
+            v1 = got
         for label, ref in refs.items():
             if not torch.equal(got, ref):
                 raise AssertionError(f"[{case}] {name}: differs from {label}")

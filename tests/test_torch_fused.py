@@ -9,7 +9,7 @@ import torch
 
 from ntt_tpu import api as jax_api
 from ntt_tpu import refmodel as rm
-from ntt_tpu.params import FIXTURES, NttParams
+from ntt_tpu.params import FIXTURES, NttParams, bench_params
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch.kernels import fused, sixstep
 from ntt_tpu_torch.kernels.elems import pick_ops
@@ -17,9 +17,11 @@ from ntt_tpu_torch.plan import get_plan
 
 from conftest import FIXTURES_FAST, fixture_id
 
-# Pallas in interpret mode is slow on the CPU: one fixture of each width,
-# m = 8.  The word-64 one runs the JAX two-launch inverse (A3 + A4).
-FUSED_JAX = [FIXTURES[0], NttParams.generate(62, 8)]
+# Pallas in interpret mode is slow on the CPU: one fixture of each width, m = 8
+# at word 32 and m = 5 at word 64 (the params of test_torch_api, so the JAX
+# calls compile once).  The word-64 one runs the JAX two-launch inverse
+# (A3 + A4).
+FUSED_JAX = [FIXTURES[0], NttParams.generate(62, 5)]
 
 
 def rand(p, batch, seed, hi=None):
@@ -106,3 +108,30 @@ def test_lazy_inputs_up_to_4q_at_62_bits():
     a[0, :8] = 4 * p.q - 1
     np.testing.assert_array_equal(port_fwd(a, p, strict=False),
                                   rm.fwd_ntt_harvey_lazy(a, p.q, plan.w, plan.w_con))
+
+
+EVERY_M = [(w, m) for w in (64, 32) for m in range(1, fused.max_logn(w) + 1)]
+
+
+@pytest.mark.parametrize("word,m", EVERY_M, ids=[f"w{w}-m{m}" for w, m in EVERY_M])
+def test_fused_plain_matches_refmodel_at_every_m(word, m):
+    """K1 / K2's plain version at every m the kernels serve (the 62-bit bench
+    q at word 64, a 29-bit q at word 32), one polynomial with inputs below
+    4q: the strict forward and the inverse against refmodel, the lazy
+    forward against refmodel's lazy representatives at word 64 (word-32
+    Shoup constants give others) and below 4q, the round trip exact."""
+    p = bench_params(m, 62) if word == 64 else NttParams.generate(29, m)
+    plan = get_plan(p)
+    assert plan.word == word
+    a = rand(p, 1, seed=18 + m, hi=4 * p.q)
+    f = port_fwd(a, p)
+    np.testing.assert_array_equal(f, rm.fwd_ntt_harvey(a, p.q, plan.w, plan.w_con))
+    lazy = port_fwd(a, p, strict=False)
+    if word == 64:
+        np.testing.assert_array_equal(lazy, rm.fwd_ntt_harvey_lazy(a, p.q, plan.w, plan.w_con))
+    np.testing.assert_array_equal(lazy % p.q, f)
+    assert lazy.max() < 4 * p.q
+    back = port_inv(f, p)
+    np.testing.assert_array_equal(
+        back, rm.inv_ntt_harvey(f, p.q, p.n_inv, plan.n_inv_con, plan.w_inv, plan.w_inv_con))
+    np.testing.assert_array_equal(back, a % p.q)

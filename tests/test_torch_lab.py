@@ -24,7 +24,7 @@ from ntt_tpu.kernels import elems as jel
 from ntt_tpu.params import NttParams as JNttParams
 from ntt_tpu.params import bench_params as jbench_params
 from ntt_tpu.plan import get_plan as jax_get_plan
-from ntt_tpu_torch import lab
+from ntt_tpu_torch import lab, sass
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch.kernels import fused, fused_lab, pointwise, probes, twopass
 from ntt_tpu_torch.params import from_fields
@@ -194,3 +194,35 @@ def test_lab_default_device_is_cuda_and_raises_without_a_card():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="cuda"):
         lab.main(["--m", "8", "--batch", "8", "--no-time"])
+
+
+def test_sass_count_reads_a_cuobjdump_listing():
+    listing = """
+        Function : fwd_bfly_u64
+        .headerflags    @"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;            /* 0x00000a00ff017b82 */
+        /*0010*/                   S2R R4, SR_TID.X ;                /* 0x0000000000047919 */
+        /*0020*/                   IMAD.WIDE.U32 R2, R4, R5, RZ ;    /* 0x0000000504027225 */
+        /*0030*/              @!P0 IADD3 R6, P1, R2, -R7, RZ ;       /* 0x8000000702068210 */
+        /*0040*/                   LDG.E.64 R8, desc[UR4][R2.64] ;   /* 0x0000000402087981 */
+        /*0050*/                   EXIT ;                            /* 0x000000000000794d */
+        /*0060*/                   BRA 0x60;                         /* 0xfffffffc00fc7947 */
+        /*0070*/                   NOP;                              /* 0x0000000000007918 */
+        Function : none_u64
+        /*0000*/                   IMAD.MOV.U32 R1, RZ, RZ, c[0x0][0x28] ;
+"""
+    got = sass.count(listing)
+    assert got == {"fwd_bfly_u64": {"IMAD.WIDE.U32": 1, "IADD3": 1},
+                   "none_u64": {"IMAD.MOV.U32": 1}}
+
+
+def test_chip_smoke_bounds_every_lab_kernel():
+    """chip_smoke's kernel table finds the work, source and TPU counterpart
+    of every kernel the lab launches."""
+    import chip_smoke
+
+    for key in (*fused_lab.LAUNCHES, *probes.LAUNCHES, *fused.LAUNCHES):
+        base = key.rsplit("_", 1)[0]
+        nbytes, _ = chip_smoke.kernel_work(base, 14, 7, 512, 64)
+        assert nbytes > 0
+        assert base in chip_smoke.SOURCES and base in chip_smoke.REPLACES

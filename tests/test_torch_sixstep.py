@@ -33,11 +33,12 @@ from ntt_tpu_torch.plan import get_plan
 from conftest import fixture_id
 
 # Pass by pass against the JAX package: a word-32 q at JAX's split (N1 = 2
-# at m = 8) and a word-64 q at another split with N1 >= 4 and N2 >= 4 (a
-# wrong row-twiddle index breaks some rows only).  The other two
+# at m = 8) and a word-64 q at another split with N1 >= 4 and N2 >= 4, N1 != N2
+# (a wrong row-twiddle index breaks some rows only), at m = 7, where a JAX
+# call compiles faster than at m = 9.  The other two
 # combinations are held against refmodel through the whole transform, which
 # any split must match bit for bit.
-JAX_CASES = [(JFIXTURES[0], None), (JNttParams.generate(62, 9), 5)]
+JAX_CASES = [(JFIXTURES[0], None), (JNttParams.generate(62, 7), 3)]
 REF_CASES = [(JFIXTURES[2], 4), (JNttParams.generate(62, 10), None)]  # m = 10
 BATCH = 2
 
