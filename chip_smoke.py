@@ -33,33 +33,44 @@ Phases, each of which raises on failure (nothing is caught):
    word) against their plain versions, bit for bit, at N = 2^16 batch 128
    and N = 2^20 batch 16 at both widths and N = 2^24 batch 1 at 62 bits;
    at N = 2^16 two rows of the forward against the NTT by its definition;
-7. main path beyond one block: with every launch count set to 0, the CKKS
+7. K4 / K5 at every m they serve in the API: at both widths and every m
+   from 1 to 24 at the API's split (the 'sixstep' variant takes any m; its
+   split gives N1 = 2 up to m = 8 and N2 = 1 at m = 1, so every
+   instantiation of 2, 4, 8 and 16 words a thread runs), batch 3, and at
+   m = 16 batch 300 (more than one wave of blocks), K4 on inputs below 4q
+   and K5 strict and lazy in both output layouts equal to their plain
+   versions, bit for bit;
+8. main path beyond one block: with every launch count set to 0, the CKKS
    product of 128 residue polynomials at N = 2^16 (both widths), round
    trips at N = 2^20 (batch 16, both widths) and N = 2^24 (batch 1), and
    the reference fixtures 15 to 18 through 'auto'; products equal to the
    plain path's and to the schoolbook product at sampled coefficients,
    round trips exact; K4 to K7 must have been launched at both widths;
-8. lab kernels vs plain: at N = 2^14, batch 32, n1_log 7 (and 4), both
+9. lab kernels vs plain: at N = 2^14, batch 32, n1_log 7 (and 4), both
    widths, inputs below 4q: L1 (fwd_fused_v2, two-stage and one-stage
    rounds, strict and lazy), L2 (fwd_fused_v3, strict, lazy, kept
    transposed) and the four L3 probes against their plain versions, bit
    for bit;
-9. the lab path: with every launch count set to 0,
+10. the lab path: with every launch count set to 0,
    ``python -m ntt_tpu_torch.lab --cases both --no-time`` (N = 2^14, batch
    512): every forward candidate equal to the plain six-step and to K1's
    output, K2 to the plain inverse, every probe to its plain version; K1
    and every L1 / L2 / L3 kernel must have been launched at both widths;
-10. times: CUDA events, warm-up, minimum over repetitions, kernel and plain
-   version in turns, beside the card's name and power limit; each kernel's
-   bound, the larger of its bytes over the memory rate and its integer
-   multiplies over the multiply rate.  K1 / K2 also at every m from 10 to
-   max_logn(word) at 2^24 words a call, beside their bounds, and the lab
-   kernels and K1 at the lab's shape, are timed as the lab times them (a
-   CUDA graph of launches, so the host's launch overhead stays out); the
-   lab kernels' plain versions at batch 32, and diag_copy's and
+11. times: warm-up, minimum over repetitions, kernel and plain version in
+   turns, beside the card's name and power limit; each kernel's bound, the
+   larger of its bytes over the memory rate and its integer multiplies
+   over the multiply rate.  Every kernel is timed as the lab times it (a
+   CUDA graph of launches between two CUDA events, so the host's launch
+   overhead stays out); the plain versions and the API calls between two
+   CUDA events around one call.  K1 / K2 at every m from 10 to
+   max_logn(word), and K4 / K5 at every m of phase 7, at 2^24 words a
+   call, beside their bounds; the lab kernels and K1 at the lab's shape,
+   the lab kernels' plain versions at batch 32, and diag_copy's and
    diag_moves's one-call PyTorch equivalents (``clone``, ``flip``) as the
    lab kernels are timed.
 
+Every phase line is followed by the wall clock the phase took, and the
+times phase ends with the wall clock of every phase.
 The last two lines before the final one are the nvidia-smi line and the
 kernel table as JSON; the final line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -73,6 +84,7 @@ import argparse
 import json
 import pathlib
 import sys
+import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 BATCH_CHECK = 128
@@ -86,7 +98,11 @@ FIXTURES_WITHIN = tuple(range(15))  # m 8-15: 'auto' is pallas-fused (K1 / K2)
 FIXTURES_BEYOND = (15, 16, 17, 18)
 BATCH_EVERY_M = 3  # K1 / K2 at every m: a small odd batch
 BATCH_WAVES = 500  # and at m14 more polynomials than one wave of blocks
-WORDS_PER_M = 1 << 24  # K1 / K2 timed at m 10-14 (15) at this many words a call
+WORDS_PER_M = 1 << 24  # K1 / K2 timed at m 10-14 (15), K4 / K5 at m 15 (16)-24, at
+# this many words a call
+TWO_PASS_FIRST_M = {64: 15, 32: 16}  # K4 / K5 at every m from the first beyond K1
+TWO_PASS_LAST_M = 24
+BATCH_TWO_PASS_WAVES = 300  # K4 / K5 at m16: more polynomials than one wave of blocks
 CSRC = "ntt_tpu_torch/csrc/"
 LAB = "tools/pallas_lab.py:"
 LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
@@ -154,8 +170,24 @@ def bound(nbytes: int, muls: int) -> tuple[float, str]:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+class PhaseClock:
+    """The script's phases and the host clock at the start of each."""
+
+    def __init__(self):
+        self.starts: list[tuple[str, float]] = []
+
+    def phase(self, name: str) -> None:
+        """Start a phase: print the wall clock the previous one took."""
+        now = time.perf_counter()
+        if self.starts:
+            print(f"  ({now - self.starts[-1][1]:.1f} s wall clock)", flush=True)
+        self.starts.append((name, now))
+        print(f"== {name}", flush=True)
+
+    def seconds(self) -> dict[str, float]:
+        """Seconds of wall clock each phase took, up to now."""
+        ends = [t for _, t in self.starts[1:]] + [time.perf_counter()]
+        return {name: round(end - start, 1) for (name, start), end in zip(self.starts, ends)}
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
@@ -181,6 +213,16 @@ def in_turns(torch, kernel, plain, reps_k: int, reps_p: int) -> tuple[float, flo
     k2 = cuda_ms(torch, kernel, reps_k)
     p2 = cuda_ms(torch, plain, reps_p)
     return min(k1, k2), min(p1, p2)
+
+
+def kernel_in_turns(torch, lab, kernel, plain, reps_p: int) -> tuple[float, float]:
+    """(kernel ms, plain ms), timed plain, kernel, kernel, plain: the
+    kernel's device time from a CUDA graph of launches (lab.cuda_us; one
+    call between two events would also time the host's enqueue, as long as
+    a short kernel), the plain version's between two CUDA events."""
+    p1 = cuda_ms(torch, plain, reps_p)
+    k_ms = min(lab.cuda_us(lambda _: kernel(), None, 3, lab.INNER) for _ in range(2)) / 1e3
+    return k_ms, min(p1, cuda_ms(torch, plain, reps_p))
 
 
 def bitrev(j: int, bits: int) -> int:
@@ -219,6 +261,8 @@ def main() -> int:
     import numpy as np
     import torch
 
+    clock = PhaseClock()
+    phase = clock.phase
     phase("device")
     if not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is false", file=sys.stderr)
@@ -283,11 +327,11 @@ def main() -> int:
         return ks
 
     def note(name, got, want, what, quiet=False):
-        err = max_abs_err(np, mm.to_host(got), mm.to_host(want))
         if not torch.equal(got, want):
+            err = max_abs_err(np, mm.to_host(got), mm.to_host(want))
             raise AssertionError(f"{what}: kernel differs from the plain version "
                                  f"(max abs err {err})")
-        errs[name] = max(errs.get(name, 0), err)
+        errs[name] = errs.get(name, 0)  # equal: no error
         if not quiet:
             print(f"  {what}: equal to plain ({tuple(got.shape)})", flush=True)
 
@@ -357,11 +401,20 @@ def main() -> int:
               "NTT by definition; K3 rows match Python ints; inv_fused(fwd_fused(a)) == a",
               flush=True)
 
+    def params_at(m, word):
+        """The 62-bit bench q at word 64, a 29-bit q at word 32."""
+        return bench_params(m, 62) if word == 64 else NttParams.generate(29, m)
+
     def every_m(word):
-        """(m, params) for every m K1 / K2 serve at a width: the 62-bit bench q
-        at word 64, a 29-bit q at word 32."""
+        """(m, params) for every m K1 / K2 serve at a width."""
         for m in range(1, fused.max_logn(word) + 1):
-            yield m, bench_params(m, 62) if word == 64 else NttParams.generate(29, m)
+            yield m, params_at(m, word)
+
+    def two_pass_m(word, first=None):
+        """(m, params, n1_log) for every m of the K4 / K5 sweep at a width
+        (from ``first``), at the API's split."""
+        for m in range(first or TWO_PASS_FIRST_M[word], TWO_PASS_LAST_M + 1):
+            yield m, params_at(m, word), sixstep.word_split(1 << m, word)
 
     phase(f"K1 / K2 vs plain at every m they serve (batch {BATCH_EVERY_M}), and at m14 "
           f"batch {BATCH_WAVES}")
@@ -507,6 +560,32 @@ def main() -> int:
         del a, k4, k5, k6, k6t, k7, wide
         torch.cuda.empty_cache()
 
+    phase(f"K4 / K5 vs plain at every m from 1 to {TWO_PASS_LAST_M} (batch {BATCH_EVERY_M}), "
+          f"and at m16 batch {BATCH_TWO_PASS_WAVES}")
+    for word in (64, 32):
+        done = []
+        for m, p, n1 in two_pass_m(word, first=1):
+            plan, ops = get_plan(p), pick_ops(p.q)
+            tabs = plan.device_tables(dev)
+            for batch in (BATCH_EVERY_M, BATCH_TWO_PASS_WAVES) if m == 16 else (BATCH_EVERY_M,):
+                tag = f"w{word} m{m} b{batch} (n1_log {n1})"
+                a = rand(p, batch, hi=4 * p.q)
+                c = sixstep.fwd_cols(a, ops, tabs.w, tabs.w_con, p.q, n1)
+                note(f"fwd_cols_u{word}", twopass.fwd_cols(a, plan, n1), c,
+                     f"{tag} K4 on input < 4q", quiet=True)
+                for strict in (True, False):
+                    for keep_t in (False, True):
+                        note(f"fwd_rows_u{word}", twopass.fwd_rows(c, plan, n1, strict, keep_t),
+                             sixstep.fwd_rows(c, ops, tabs.w, tabs.w_con, p.q, n1, strict,
+                                              keep_t),
+                             f"{tag} K5 {'strict' if strict else 'lazy'}"
+                             f"{', kept transposed' if keep_t else ''}", quiet=True)
+                done.append(f"m{m} b{batch}")
+                del a, c
+            torch.cuda.empty_cache()
+        print(f"  w{word}: K4 (input < 4q) and K5 (strict, lazy, both layouts) equal to plain "
+              f"at {', '.join(done)}", flush=True)
+
     phase("main path beyond one block: negacyclic_mul m16 batch 128, round trips m20 "
           "batch 16 and m24 batch 1, fixtures 15-18 through 'auto'")
     he2 = {s: (rand(tp_params[s], 128), rand(tp_params[s], 128))
@@ -599,7 +678,8 @@ def main() -> int:
     print(f"  {len(records)} candidates bit-exact (transforms against the plain six-step "
           "and K1, probes against their plain versions)", flush=True)
 
-    phase(f"times (CUDA events, min over reps; {smi})")
+    phase(f"times (kernels from a CUDA graph of launches, plain versions and API calls "
+          f"between CUDA events; min over reps; {smi})")
     table = []
 
     def entry(name, count, k_ms, p_ms, m, n1_log, batch, word, shape, record,
@@ -646,7 +726,7 @@ def main() -> int:
                                 lambda: ops.mul_mod(x, y, p.q)),
         }
         for name, (kern, plain) in runs.items():
-            k_ms, p_ms = in_turns(torch, kern, plain, 10, 2)
+            k_ms, p_ms = kernel_in_turns(torch, lab, kern, plain, 2)
             entry(name, launches[name], k_ms, p_ms, p.m, p.m, BATCH_HE, plan.word,
                   f"m14 batch {BATCH_HE}", record=True)
         k_ms, p_ms = in_turns(torch, lambda: api.negacyclic_mul(x, y, p),
@@ -684,6 +764,24 @@ def main() -> int:
                   f"{b2 * 1e3:.1f}, {b2 / k2_ms:.0%})", flush=True)
             del a, f
 
+    # K4 / K5 at every m of the two-pass sweep, 2^24 words a call, beside their
+    # bounds; device time from a CUDA graph of launches
+    for word in (64, 32):
+        for m, p, n1 in two_pass_m(word):
+            plan = get_plan(p)
+            batch = WORDS_PER_M >> m
+            a = rand(p, batch)
+            c = twopass.fwd_cols(a, plan, n1)
+            k4_ms = lab.cuda_us(lambda x: twopass.fwd_cols(x, plan, n1), a, 3, lab.INNER) / 1e3
+            k5_ms = lab.cuda_us(lambda x: twopass.fwd_rows(x, plan, n1), c, 3, lab.INNER) / 1e3
+            b4, _ = bound(*kernel_work("fwd_cols", m, n1, batch, word))
+            b5, _ = bound(*kernel_work("fwd_rows", m, n1, batch, word))
+            print(f"  w{word} m{m} batch {batch} (n1_log {n1}): K4 {k4_ms * 1e3:.1f} us (bound "
+                  f"{b4 * 1e3:.1f}, {b4 / k4_ms:.0%}), K5 {k5_ms * 1e3:.1f} us (bound "
+                  f"{b5 * 1e3:.1f}, {b5 / k5_ms:.0%})", flush=True)
+            del a, c
+        torch.cuda.empty_cache()
+
     for size, batch in TWO_PASS:
         p, plan, ops, tabs, n1, word = two_pass_ops(size)
         a = rand(p, batch)
@@ -707,13 +805,13 @@ def main() -> int:
         }
         main_size = size.startswith("m16")
         for name, (kern, plain) in runs.items():
-            k_ms, p_ms = in_turns(torch, kern, plain, 10, 2)
+            k_ms, p_ms = kernel_in_turns(torch, lab, kern, plain, 2)
             entry(name, launches2[name], k_ms, p_ms, p.m, n1, batch, plan.word,
                   f"{size} batch {batch}", record=main_size)
         if main_size:
             x, y = he2[size]
-            k_ms, p_ms = in_turns(torch, lambda: pointwise.mul_mod(x, y, p.q),
-                                  lambda: ops.mul_mod(x, y, p.q), 10, 2)
+            k_ms, p_ms = kernel_in_turns(torch, lab, lambda: pointwise.mul_mod(x, y, p.q),
+                                         lambda: ops.mul_mod(x, y, p.q), 2)
             entry(f"mul_mod_{word}", launches2[f"mul_mod_{word}"], k_ms, p_ms, p.m, n1,
                   batch, plan.word, f"{size} batch {batch}", record=False)
             k_ms, p_ms = in_turns(torch, lambda: api.negacyclic_mul(x, y, p),
@@ -762,6 +860,7 @@ def main() -> int:
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ntt_tpu"))
     if bad:
         raise AssertionError(f"imported {bad}")
+    print(f"  wall clock a phase, s: {json.dumps(clock.seconds())}", flush=True)
 
     print(smi)
     print(json.dumps({"kernels": table}))

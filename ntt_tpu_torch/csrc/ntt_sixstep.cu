@@ -38,31 +38,56 @@
 // (two 128 MB tables against a 50 MB L2) a batch-1 pass reads more twiddle
 // bytes than data.
 //
-// Design: one block per tile, the tile held in dynamic shared memory through
-// all the pass's stages with one __syncthreads() between stages.
+// Design: one block per tile, the tile held in dynamic shared memory.
 //   * Column passes: a tile is N1 rows x TC consecutive columns.  Each row
 //     segment of TC words is one coalesced read, so TC is at least one 32-byte
 //     sector's worth of words (4 at word 64, 8 at word 32), and grows while
-//     the tile stays small (kernels/twopass.py picks it from N1 and the word).
+//     the tile stays small (kernels/twopass.py picks every tile).
 //   * Row passes: a tile is TR consecutive rows of N2.  Rows are contiguous in
 //     the (N1, N2) layout; in the (N2, N1) layout the TR rows of one column
-//     are TR consecutive words, so TR is at least one sector's worth too, and
-//     the tile's row pitch is padded so that the transposed accesses of a
-//     warp fall in distinct shared-memory banks.
+//     are TR consecutive words, so a tile that reads or writes that layout
+//     holds at least a sector's worth of rows, and the tile's row pitch is
+//     padded so that the transposed accesses of a warp fall in distinct
+//     shared-memory banks.
 //   * Blocks are numbered batch-fastest, so the blocks running together on
 //     the card work on the same rows of different polynomials and share the
 //     row twiddles in L2.
+// K4 and K5 (redesigned after K1 / K2) run the register rounds of rounds.cuh
+// on their tile: each thread holds 2^K words of one column or row and
+// runs K stages on them with no barrier, reading each twiddle pair once
+// a round, and the block exchanges the tile through padded shared memory only
+// between rounds (one barrier a round, where the first design had one a
+// stage).  The first round loads from device memory straight into registers
+// (a warp's lanes walk K4's TC columns, or K5's consecutive groups of a row:
+// whole sectors); K4's last round stores from registers the same way, K5's
+// goes through the exchange buffer for the strict reduce and the layout of
+// its output.  Row r's twiddle base N1 + r keeps every index the flat
+// transform's.  K6 and K7 keep the first design: one __syncthreads() a stage.
 // Element offsets into device memory are size_t: batch x N passes 2^31.
 #include <climits>
 
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
+#include "rounds.cuh"
 
 namespace ntt {
 
 constexpr int kTileThreads = 512;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a Hopper block can use
+
+// K4 / K5's bound on registers at each width: room for kMinBlocks blocks of
+// kTileThreads threads on an SM.
+template <typename T>
+struct TwoPass;
+template <>
+struct TwoPass<u32> {
+  static constexpr int kMinBlocks = 2;
+};
+template <>
+struct TwoPass<u64> {
+  static constexpr int kMinBlocks = 1;
+};
 
 // Words between the starts of two rows of a row tile: N2 plus a pad that puts
 // the TR rows of one column (the transposed accesses) in distinct banks.
@@ -80,39 +105,38 @@ inline int tile_threads(int count) {
 // column passes: tile (N1, TC) at columns [c0, c0 + TC) of one polynomial
 // ---------------------------------------------------------------------------
 
+// K4's map: the TC = 2^vlog columns of an (N1, TC) column tile.  Word x of
+// column v is row x; in the exchange buffer column v is a padded polynomial
+// at v * pitch.  The lanes of a warp walk the TC columns of a group fastest,
+// so each load or store of a register moves whole row segments of TC words.
 template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-fwd_cols_kernel(const T* __restrict__ in, T* __restrict__ out,
-                const T* __restrict__ w, const T* __restrict__ w_con, T q,
-                int batch, int n1_log, int n2_log, int tc_log) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const int tc = 1 << tc_log;
-  const int count = 1 << (n1_log + tc_log);
-  const size_t base = ((size_t)(blockIdx.x % batch) << (n1_log + n2_log)) +
-                      ((size_t)(blockIdx.x / batch) << tc_log);
-
-  for (int i = threadIdx.x; i < count; i += blockDim.x)
-    s[i] = in[base + ((size_t)(i >> tc_log) << n2_log) + (i & (tc - 1))];
-  __syncthreads();
-
-  for (int st = 0; st < n1_log; ++st) {
-    const int m = 1 << st;
-    const int lt = n1_log - 1 - st;
-    for (int j = threadIdx.x; j < (count >> 1); j += blockDim.x) {
-      const int c = j & (tc - 1);
-      const StageIndex ix(j >> tc_log, lt);
-      T x = s[(ix.i0 << tc_log) + c];
-      T y = s[(ix.i1 << tc_log) + c];
-      fwd_bfly<T>(x, y, __ldg(w + m + ix.g), __ldg(w_con + m + ix.g), q);
-      s[(ix.i0 << tc_log) + c] = x;
-      s[(ix.i1 << tc_log) + c] = y;
-    }
-    __syncthreads();
+struct ColRounds {
+  int logn, vlog, n2_log, pitch;
+  __device__ __forceinline__ void lane(int j, int, int& v, int& g) const {
+    v = j & ((1 << vlog) - 1);
+    g = j >> vlog;
   }
+  __device__ __forceinline__ size_t dev(int v, int x) const {
+    return ((size_t)x << n2_log) + v;
+  }
+  __device__ __forceinline__ int sm(int v, int x) const { return v * pitch + padded<T>(x); }
+  __device__ __forceinline__ int base(int) const { return 1; }
+};
 
-  for (int i = threadIdx.x; i < count; i += blockDim.x)
-    out[base + ((size_t)(i >> tc_log) << n2_log) + (i & (tc - 1))] = s[i];
+// K4: the column stages of one (N1, TC) tile in rounds of K, loaded from
+// device memory into the first round's registers and stored from the last
+// round's (row segments of TC words, whole sectors), lazy (< 4q).
+template <typename T, int K>
+__global__ void __launch_bounds__(kTileThreads, TwoPass<T>::kMinBlocks)
+fwd_cols_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
+                const T* __restrict__ w_con, T q, int batch, int n1_log, int n2_log,
+                int tc_log, int pitch) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const size_t tile = ((size_t)(blockIdx.x % batch) << (n1_log + n2_log)) +
+                      ((size_t)(blockIdx.x / batch) << tc_log);
+  const ColRounds<T> tl{n1_log, tc_log, n2_log, pitch};
+  tile_forward<T, K>(tl, in + tile, out + tile, sm, w, w_con, q);
 }
 
 template <typename T>
@@ -201,47 +225,74 @@ __device__ __forceinline__ RowTile row_tile(int batch, int n1_log, int n2_log,
   return t;
 }
 
+// K5's map: the TR = 2^vlog rows r0 .. r0 + TR - 1 of a row tile.  Word x of
+// row v is column x, the rows contiguous in device memory; in the exchange
+// buffer row v is a padded polynomial at v * pitch.  The lanes of a warp walk
+// the groups of a row fastest; row v's twiddle base is N1 + r0 + v.
 template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-fwd_rows_kernel(const T* __restrict__ in, T* __restrict__ out,
-                const T* __restrict__ w, const T* __restrict__ w_con, T q,
-                int batch, int n1_log, int n2_log, int tr_log, int strict,
-                int out_transposed) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const RowTile t = row_tile<T>(batch, n1_log, n2_log, tr_log);
-  const int count = 1 << (n2_log + tr_log);
+struct RowRounds {
+  int logn, vlog, base0, pitch;
+  __device__ __forceinline__ void lane(int j, int glog, int& v, int& g) const {
+    v = j >> glog;
+    g = j & ((1 << glog) - 1);
+  }
+  __device__ __forceinline__ size_t dev(int v, int x) const {
+    return ((size_t)v << logn) + x;
+  }
+  __device__ __forceinline__ int sm(int v, int x) const { return v * pitch + padded<T>(x); }
+  __device__ __forceinline__ int base(int v) const { return base0 + v; }
+};
 
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    int sm;
-    const size_t g = t.dev(i, false, sm);
-    s[sm] = in[g];
+// K5: the row stages of TR rows in rounds of K, loaded from device memory
+// into the first round's registers; the last round writes the exchange
+// buffer, from which the tile leaves in coalesced pieces, with the strict
+// 4q -> q reduce on the way: 16-byte stores of each row in the (N1, N2)
+// layout, or in the (N2, N1) layout TR consecutive words a column.
+template <typename T, int K>
+__global__ void __launch_bounds__(kTileThreads, TwoPass<T>::kMinBlocks)
+fwd_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
+                const T* __restrict__ w_con, T q, int batch, int n1_log, int n2_log,
+                int tr_log, int pitch, int strict, int out_transposed) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const size_t poly = (size_t)(blockIdx.x % batch) << (n1_log + n2_log);
+  const int r0 = (int)(blockIdx.x / batch) << tr_log;
+  const size_t tile = poly + ((size_t)r0 << n2_log);
+  const RowRounds<T> tl{n2_log, tr_log, (1 << n1_log) + r0, pitch};
+  const int count = 1 << (n2_log + tr_log);
+  if (n2_log == 0) {  // rows of one word: no stages
+    for (int i = threadIdx.x; i < count; i += blockDim.x) sm[tl.sm(i, 0)] = in[tile + i];
+  } else {
+    tile_forward<T, K>(tl, in + tile, nullptr, sm, w, w_con, q);
   }
   __syncthreads();
-
-  for (int st = 0; st < n2_log; ++st) {
-    const int m2 = 1 << st;
-    const int lt = n2_log - 1 - st;
-    const size_t tw0 = ((size_t)m2 << n1_log) + (size_t)t.r0 * m2;
-    for (int j = threadIdx.x; j < (count >> 1); j += blockDim.x) {
-      const int rr = j >> (n2_log - 1);
-      const StageIndex ix(j & ((1 << (n2_log - 1)) - 1), lt);
-      const size_t k = tw0 + (size_t)rr * m2 + ix.g;
-      T* row = s + rr * t.pitch;
-      T x = row[ix.i0];
-      T y = row[ix.i1];
-      fwd_bfly<T>(x, y, __ldg(w + k), __ldg(w_con + k), q);
-      row[ix.i0] = x;
-      row[ix.i1] = y;
+  typedef Vec16<T> V;
+  if (out_transposed) {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) {
+      const int k = i >> tr_log;
+      const int rr = i & ((1 << tr_log) - 1);
+      const T x = sm[tl.sm(rr, k)];
+      out[poly + ((size_t)k << n1_log) + r0 + rr] = strict ? reduce_4q_to_q<T>(x, q) : x;
     }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    int sm;
-    const size_t g = t.dev(i, out_transposed != 0, sm);
-    const T v = s[sm];
-    out[g] = strict ? reduce_4q_to_q<T>(v, q) : v;
+  } else if ((1 << n2_log) >= V::n && (reinterpret_cast<size_t>(out) & 15) == 0) {
+    typename V::type* g = reinterpret_cast<typename V::type*>(out + tile);
+    for (int u = threadIdx.x; u < count / V::n; u += blockDim.x) {
+      const int i = u * V::n;
+      const int rr = i >> n2_log;
+      const int k = i & ((1 << n2_log) - 1);
+      T d[V::n];
+#pragma unroll
+      for (int c = 0; c < V::n; ++c) {
+        const T x = sm[tl.sm(rr, k + c)];
+        d[c] = strict ? reduce_4q_to_q<T>(x, q) : x;
+      }
+      g[u] = V::make(d);
+    }
+  } else {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) {
+      const T x = sm[tl.sm(i >> n2_log, i & ((1 << n2_log) - 1))];
+      out[tile + i] = strict ? reduce_4q_to_q<T>(x, q) : x;
+    }
   }
 }
 
@@ -310,21 +361,54 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
+// K4 / K5's rounds on a tile of 2^vlog transforms of 2^logn words: K stages
+// a round, 2^K words a group (K = 4, fewer on a shorter transform; logn = 0
+// takes K = 1 and runs no round), two groups a thread (at least a warp, at
+// most kTileThreads), and an exchange buffer of `pitch` words a transform: a
+// transform padded by one word a bank row (rounds.cuh's padded), rounded up
+// to whole bank rows, plus row / 2^vlog words, which puts the transforms'
+// words of one access in distinct banks.  kernels/twopass.py's
+// round_tile_log picks vlog with the same pitch.
+constexpr int kRoundLog = 4;
+
+inline int round_log(int logn) {
+  return logn < kRoundLog ? (logn > 0 ? logn : 1) : kRoundLog;
+}
+
+inline int round_threads(int logn, int vlog) {
+  const int excess = logn - round_log(logn);
+  const int groups = 1 << ((excess > 0 ? excess : 0) + vlog);
+  const int warp = groups < 32 ? groups : 32;
+  const int threads = (groups >> 1) > warp ? groups >> 1 : warp;
+  return threads < kTileThreads ? threads : kTileThreads;
+}
+
+template <typename T>
+size_t round_smem(int logn, int vlog, int& pitch) {
+  const int row = 1 << kRowLog<T>;
+  const long long n = 1LL << logn;
+  const long long padded = n + ((n - 1) >> kRowLog<T>);
+  const int pad = row >> vlog;
+  pitch = (int)((padded + row - 1) / row * row) + (pad > 1 ? pad : 1);
+  return sizeof(T) * ((size_t)pitch << vlog);
+}
+
+#define NTT_BY_LOG_R(KERNEL, T, LOG_R)                                    \
+  ((LOG_R) == 1 ? KERNEL<T, 1> : (LOG_R) == 2 ? KERNEL<T, 2>            \
+                               : (LOG_R) == 3 ? KERNEL<T, 3> : KERNEL<T, 4>)
+
 template <typename T>
 int launch_fwd_cols(const void* in, void* out, const void* w, const void* w_con,
-                    u64 q, int batch, int n1_log, int n2_log, int tc_log,
-                    void* stream) {
+                    u64 q, int batch, int n1_log, int n2_log, int tc_log, void* stream) {
   const long long blocks = pass_blocks(batch, n1_log, n2_log, tc_log, n2_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
-  const int count = 1 << (n1_log + tc_log);
-  const size_t smem = sizeof(T) * count;
-  cudaError_t err = prepare(fwd_cols_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fwd_cols_kernel<T><<<(unsigned)blocks, tile_threads(count), smem,
-                       (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q, batch, n1_log,
-      n2_log, tc_log);
-  return (int)cudaGetLastError();
+  int pitch;
+  const size_t smem = round_smem<T>(n1_log, tc_log, pitch);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return launch_blocks(NTT_BY_LOG_R(fwd_cols_kernel, T, round_log(n1_log)), (int)blocks,
+                       round_threads(n1_log, tc_log), smem,
+                       stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q,
+                       batch, n1_log, n2_log, tc_log, pitch);
 }
 
 template <typename T>
@@ -353,20 +437,20 @@ int launch_inv_cols(const void* in, void* out, const void* w, const void* w_con,
 
 template <typename T>
 int launch_fwd_rows(const void* in, void* out, const void* w, const void* w_con,
-                    u64 q, int batch, int n1_log, int n2_log, int tr_log,
-                    int strict, int out_transposed, void* stream) {
+                    u64 q, int batch, int n1_log, int n2_log, int tr_log, int strict,
+                    int out_transposed, void* stream) {
   const long long blocks = pass_blocks(batch, n1_log, n2_log, tr_log, n1_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
-  const int count = 1 << (n2_log + tr_log);
-  const size_t smem = sizeof(T) * ((size_t)row_pitch(n2_log, tr_log, sizeof(T)) << tr_log);
-  cudaError_t err = prepare(fwd_rows_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  fwd_rows_kernel<T><<<(unsigned)blocks, tile_threads(count), smem,
-                       (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q, batch, n1_log,
-      n2_log, tr_log, strict, out_transposed);
-  return (int)cudaGetLastError();
+  int pitch;
+  const size_t smem = round_smem<T>(n2_log, tr_log, pitch);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return launch_blocks(NTT_BY_LOG_R(fwd_rows_kernel, T, round_log(n2_log)), (int)blocks,
+                       round_threads(n2_log, tr_log), smem,
+                       stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q,
+                       batch, n1_log, n2_log, tr_log, pitch, strict, out_transposed);
 }
+
+#undef NTT_BY_LOG_R
 
 template <typename T>
 int launch_inv_rows(const void* in, void* out, const void* w, const void* w_con,

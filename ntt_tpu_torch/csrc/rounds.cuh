@@ -253,6 +253,90 @@ __device__ __forceinline__ void run_round(const T* __restrict__ gin, T* __restri
   }
 }
 
+// ---------------------------------------------------------------------------
+// Rounds on a tile: 2^vlog independent transforms of 2^logn words each in one
+// block (K4: the TC columns of an (N1, TC) column tile; K5: the TR rows of a
+// row tile; ntt_sixstep.cu).  Each transform runs the rounds above with its
+// own twiddle base: the first twiddle index of group hi in a round from s0 is
+// (base << s0) + hi, base 1 for the whole polynomial and for K4's columns
+// (column stage s of row r is flat stage s, index 2^s + (r >> (log2 N1 -
+// s))), N1 + r for K5's row r (row stage s' of word k is flat stage log2 N1 +
+// s', index ((N1 + r) << s') + (k >> (log2 N2 - s'))).  So every word meets
+// the flat transform's butterflies and twiddles, and the bits, lazy
+// representatives included, are the flat transform's.
+//
+// The kernel supplies the map, a Tile with
+//   logn, vlog               the transforms' size and count (log2);
+//   lane(j, glog, v, g)      group g of transform v that thread slot j
+//                            takes (2^glog groups a transform);
+//   dev(v, x)                word x of transform v in device memory,
+//                            relative to the tile's start;
+//   sm(v, x)                 word x of transform v in the exchange buffer;
+//   base(v)                  the transform's twiddle base.
+// ---------------------------------------------------------------------------
+
+// One round over stages s0 .. s0 + ns - 1 of every transform of the tile:
+// each group from device memory (gin) or the exchange buffer, its stages in
+// registers, and back to device memory (gout) or the exchange buffer.
+template <typename T, int K, class Tile>
+__device__ __forceinline__ void tile_round(const Tile& tl, const T* __restrict__ gin,
+                                           T* __restrict__ gout, T* sm,
+                                           const T* __restrict__ w,
+                                           const T* __restrict__ w_con, T q, int s0, int ns) {
+  constexpr int R = 1 << K;
+  const int logt = tl.logn - s0 - K;
+  const int t = 1 << logt;
+  const int glog = tl.logn - K;
+  const int slots = 1 << (glog + tl.vlog);
+#pragma unroll 1
+  for (int j = threadIdx.x; j < slots; j += blockDim.x) {
+    int v, g, hi;
+    tl.lane(j, glog, v, g);
+    const int base = group_base<T, K>(g, logt, s0, hi);
+    T x[R];
+    if (gin) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) x[i] = __ldg(gin + tl.dev(v, base + i * t));
+    } else {
+#pragma unroll
+      for (int i = 0; i < R; ++i) x[i] = sm[tl.sm(v, base + i * t)];
+    }
+    fwd_stages<T, K>(x, w, w_con, q, (tl.base(v) << s0) + hi, ns);
+    if (gout) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) gout[tl.dev(v, base + i * t)] = x[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < R; ++i) sm[tl.sm(v, base + i * t)] = x[i];
+    }
+  }
+}
+
+// The stages of the first of the rounds of K stages that 2^logn words need:
+// the first takes the remainder, the others K each.
+template <int K>
+__host__ __device__ inline int first_round_stages(int logn) {
+  const int nr = (logn + K - 1) / K;
+  return logn - K * (nr - 1);
+}
+
+// The whole forward of every transform of the tile in rounds of K stages
+// (1 <= K <= logn): the first round from device memory, the last to device
+// memory (gout) or, with gout null, to the exchange buffer; one barrier
+// between two rounds.
+template <typename T, int K, class Tile>
+__device__ __forceinline__ void tile_forward(const Tile& tl, const T* __restrict__ gin,
+                                             T* __restrict__ gout, T* sm,
+                                             const T* __restrict__ w,
+                                             const T* __restrict__ w_con, T q) {
+  for (int s0 = 0, ns = first_round_stages<K>(tl.logn); s0 < tl.logn; s0 += ns, ns = K) {
+    const bool last = s0 + ns == tl.logn;
+    tile_round<T, K>(tl, s0 == 0 ? gin : nullptr, last ? gout : nullptr, sm, w, w_con, q, s0,
+                     ns);
+    if (!last) __syncthreads();
+  }
+}
+
 // The polynomial from padded shared memory to device memory, 16-byte stores
 // where aligned (strict: reduced below q on the way out).
 template <typename T>

@@ -19,6 +19,9 @@ What bounds them on an H100: device memory, one read and one write of
 every coefficient per pass, plus the row twiddles in the row passes.
 Every pass takes ``n1_log`` (N1 = 2^n1_log); the API passes the JAX
 package's split (``sixstep.word_split``), which fixes the transposed layout.
+K4 and K5 run register rounds on their tiles, whose size
+``round_tile_log`` picks; K6 and K7, still one stage a pass over shared
+memory, take theirs from ``tile_log``.
 
 A wrapper runs the plain PyTorch version (``kernels/sixstep.py``) for a
 tensor on the CPU and the kernel for a tensor on a CUDA device; it never
@@ -36,7 +39,7 @@ from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.kernels.fused import SMEM_BYTES, cuda_batch
 from ntt_tpu_torch.plan import NttPlan
 
-# Shared memory a tile aims at: small enough for several blocks per SM.
+# Shared memory a K6 / K7 tile aims at: small enough for several blocks per SM.
 TILE_BYTES = 32 * 1024
 SECTOR_BYTES = 32  # one DRAM sector: the least a coalesced access should move
 
@@ -50,8 +53,8 @@ def row_pitch(n2_log: int, tr_log: int, word: int) -> int:
 
 
 def tile_log(n1_log: int, n2_log: int, word: int, rows: bool) -> int:
-    """log2 of the columns (TC) a column tile holds, or with rows, of the
-    rows (TR) a row tile holds: at least a sector's worth of words, more
+    """K6 / K7's tile: log2 of the columns (TC) a column tile holds, or with
+    rows, of the rows (TR) a row tile holds: at least a sector's worth of words, more
     while the tile stays within TILE_BYTES, at most the whole other axis;
     fewer only where shared memory forces it."""
     size = word // 8
@@ -68,6 +71,57 @@ def tile_log(n1_log: int, n2_log: int, word: int, rows: bool) -> int:
     while lg > 0 and tile_bytes(lg) > SMEM_BYTES:
         lg -= 1
     if tile_bytes(lg) > SMEM_BYTES:
+        raise ValueError(f"a {'row' if rows else 'column'} of 2^{axis_log} words of "
+                         f"{word} bits exceeds one block's shared memory")
+    return lg
+
+
+# K4 / K5's tile: the shared memory it aims at; a column tile of short rows
+# (N2 <= 2^SHORT_ROW_LOG) reads row segments of at least two sectors:
+# 32-byte segments of such rows ran K4 at half speed.
+ROUND_TILE_BYTES = 40 * 1024
+SHORT_ROW_LOG = 6
+
+
+def bank_row(word: int) -> int:
+    """Words of one shared-memory bank row: 32 of 4 bytes or 16 of 8."""
+    return 16 if word == 64 else 32
+
+
+def round_smem(logn: int, tile_log: int, word: int) -> int:
+    """Bytes of K4 / K5's exchange buffer for 2^tile_log transforms of
+    2^logn words (``round_smem`` in the source): each transform padded by
+    one word a bank row (rounds.cuh's ``padded``), rounded up to whole bank
+    rows, plus row / 2^tile_log words, which puts the transforms' words of
+    one access in distinct banks."""
+    n, row = 1 << logn, bank_row(word)
+    pitch = -(-(n + (n - 1) // row) // row) * row + max(1, row >> tile_log)
+    return pitch * (word // 8) << tile_log
+
+
+def round_tile_log(n1_log: int, n2_log: int, word: int, rows: bool,
+                   transposed: bool = False) -> int:
+    """K4's tile (or with rows, K5's, storing the (N2, N1) layout with
+    transposed): log2 of its columns (TC) or rows (TR).  A tile's row
+    segments (K4), or the words of a column it stores together (K5
+    transposed), fill at least a sector (two for K4 on short rows); K5 in
+    the (N1, N2) layout stores whole rows and starts from one.  The tile
+    grows while its exchange buffer stays within ROUND_TILE_BYTES and
+    shrinks only where shared memory forces it.  The launcher derives the
+    rest of the geometry from it: 16 words a thread in rounds of 4 stages
+    (fewer on a shorter transform), two groups a thread."""
+    size = word // 8
+    axis_log, other_log = (n2_log, n1_log) if rows else (n1_log, n2_log)
+    if rows:
+        segment = SECTOR_BYTES if transposed else size
+    else:
+        segment = SECTOR_BYTES * (2 if n2_log <= SHORT_ROW_LOG else 1)
+    lg = min((segment // size).bit_length() - 1, other_log)
+    while lg < other_log and round_smem(axis_log, lg + 1, word) <= ROUND_TILE_BYTES:
+        lg += 1
+    while lg > 0 and round_smem(axis_log, lg, word) > SMEM_BYTES:
+        lg -= 1
+    if round_smem(axis_log, lg, word) > SMEM_BYTES:
         raise ValueError(f"a {'row' if rows else 'column'} of 2^{axis_log} words of "
                          f"{word} bits exceeds one block's shared memory")
     return lg
@@ -102,7 +156,7 @@ def fwd_cols(a: torch.Tensor, plan: NttPlan, n1_log: int) -> torch.Tensor:
     tabs = plan.device_tables(a.device)
     if native.route(a) == "cpu":
         return sixstep.fwd_cols(a, pick_ops(plan.q), tabs.w, tabs.w_con, plan.q, n1_log)
-    tc = tile_log(n1_log, n2_log, plan.word, rows=False)
+    tc = round_tile_log(n1_log, n2_log, plan.word, rows=False)
     return _launch("fwd_cols", a, plan, (tabs.w.data_ptr(), tabs.w_con.data_ptr(), plan.q),
                    (n1_log, n2_log, tc))
 
@@ -116,7 +170,7 @@ def fwd_rows(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
     if native.route(a) == "cpu":
         return sixstep.fwd_rows(a, pick_ops(plan.q), tabs.w, tabs.w_con, plan.q, n1_log,
                                 strict, keep_transposed)
-    tr = tile_log(n1_log, n2_log, plan.word, rows=True)
+    tr = round_tile_log(n1_log, n2_log, plan.word, rows=True, transposed=keep_transposed)
     return _launch("fwd_rows", a, plan, (tabs.w.data_ptr(), tabs.w_con.data_ptr(), plan.q),
                    (n1_log, n2_log, tr, int(strict), int(keep_transposed)))
 

@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 import functools
 
+from ntt_tpu_torch import twiddles
+
 
 def is_probable_prime(n: int) -> bool:
     """Deterministic Miller-Rabin for n < 3.3e24 (covers all 64-bit ints)."""
@@ -62,6 +64,8 @@ def primitive_2n_root(q: int, m: int) -> int:
     of the odd powers c^(2i+1), all of which are primitive 2N-th roots."""
     n = 1 << m
     two_n = 2 * n
+    if q >= twiddles.Q_LIMIT:
+        raise ValueError(f"q = {q:#x} is not below 2^62")
     if (q - 1) % two_n:
         raise ValueError(f"2N = {two_n} does not divide q - 1 for q = {q:#x}")
     exp = (q - 1) // two_n
@@ -73,14 +77,7 @@ def primitive_2n_root(q: int, m: int) -> int:
         g += 1
         if g > 1000:
             raise ValueError("no generator found (q not prime?)")
-    w_min = c
-    cur = c
-    c2 = c * c % q
-    for _ in range(n):
-        cur = cur * c2 % q
-        if cur < w_min:
-            w_min = cur
-    return w_min
+    return int(twiddles.powers(c, two_n, q)[1::2].min())
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,7 +12,6 @@ tables are int32 or int64 tensors of the plan's width, cached per device.
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import numpy as np
@@ -37,14 +36,33 @@ def final_mulop(n_inv_op: int, n_inv_con: int, w1: int, q: int, word: int):
     return tmp, (tmp << word) // q
 
 
-@dataclasses.dataclass(frozen=True)
 class DeviceTables:
-    """The plan's tables at its width, as tensors on one device."""
+    """The plan's tables at its width, as tensors on one device: w, w_con,
+    w_inv, w_inv_con, each built and copied at first use (a forward-only
+    caller never builds the inverse tables)."""
 
-    w: torch.Tensor
-    w_con: torch.Tensor
-    w_inv: torch.Tensor
-    w_inv_con: torch.Tensor
+    def __init__(self, plan: "NttPlan", device: torch.device):
+        self._plan, self._device = plan, device
+
+    def _load(self, name: str) -> torch.Tensor:
+        host = name + "32" if self._plan.word == 32 and name.endswith("_con") else name
+        return mm.from_host(getattr(self._plan, host), self._plan.q, self._device)
+
+    @functools.cached_property
+    def w(self) -> torch.Tensor:
+        return self._load("w")
+
+    @functools.cached_property
+    def w_con(self) -> torch.Tensor:
+        return self._load("w_con")
+
+    @functools.cached_property
+    def w_inv(self) -> torch.Tensor:
+        return self._load("w_inv")
+
+    @functools.cached_property
+    def w_inv_con(self) -> torch.Tensor:
+        return self._load("w_inv_con")
 
 
 class NttPlan:
@@ -130,12 +148,7 @@ class NttPlan:
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if device not in self._dev:
-            if self.word == 32:
-                names = ("w", "w_con32", "w_inv", "w_inv_con32")
-            else:
-                names = ("w", "w_con", "w_inv", "w_inv_con")
-            tabs = [mm.from_host(getattr(self, k), self.q, device) for k in names]
-            self._dev[device] = DeviceTables(*tabs)
+            self._dev[device] = DeviceTables(self, device)
         return self._dev[device]
 
 

@@ -83,6 +83,28 @@ def test_twiddle_builders_equal_jax(n):
         assert twiddles.calc_ninv_con(12345, q, word) == jtw.calc_ninv_con(12345, q, word)
 
 
+@pytest.mark.parametrize("m", [1, 2, 5, 12])
+def test_twiddle_builders_equal_jax_at_62_bits(m):
+    """The vectorised builders (Shoup products of 62-bit words, quotient
+    digits of the word-64 constants) at the bench q of 62 bits."""
+    p = params.bench_params(m, 62)
+    for w in (p.w, p.w_inv):
+        tab = twiddles.calc_w(w, p.n, p.q)
+        np.testing.assert_array_equal(tab, jtw.calc_w(w, p.n, p.q))
+        np.testing.assert_array_equal(twiddles.calc_w_con(tab, p.q, 64),
+                                      jtw.calc_w_con(tab, p.q, 64))
+
+
+def test_twiddle_builders_reject_q_from_2_62():
+    """The vectorised Shoup constants are exact for q < 2^62, the port's
+    limit; a larger q raises instead of giving wrong constants."""
+    q = (1 << 62) + 1
+    with pytest.raises(ValueError, match="2\\^62"):
+        twiddles.calc_w_con(np.array([1, 2], dtype=np.uint64), q, 64)
+    with pytest.raises(ValueError, match="2\\^62"):
+        params.primitive_2n_root(q, 1)
+
+
 @pytest.mark.parametrize("m", range(1, 25))
 def test_default_split_equals_jax(m):
     n = 1 << m

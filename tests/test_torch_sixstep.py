@@ -6,7 +6,9 @@ sixstep.fwd_phase1, fwd_rows against fwd_phase2 with the transposes,
 inv_rows against the Pallas _inv_rows_kernel (A3) and inv_cols against the
 Pallas _inv_cols_kernel (A4), both in interpret mode.  Then the variants
 through the API, and the four reference fixtures beyond one block through
-'auto'.  Exact equality throughout, lazy representatives included."""
+'auto'.  Exact equality throughout, lazy representatives included.  Last,
+K4 / K5's tile (twopass.round_tile_log) at every split the API runs
+beyond one block, and chip_smoke's bounds of K4 / K5 there."""
 
 import functools
 
@@ -330,3 +332,55 @@ def test_fixture_beyond_one_block_through_auto(i):
                                   rm.fwd_ntt_harvey(mm.to_host(a), p.q, plan.w, plan.w_con))
     assert torch.equal(api.inv_ntt(f, p), a)
     assert twopass.LAUNCHES == twopass_before  # the CPU route launches nothing
+
+
+# -- K4 / K5's tile on the card (twopass.round_tile_log) -------------------------
+
+# every (word, m) the two-pass form serves beyond one block: m >= 15 at word
+# 64, m >= 16 at word 32, up to the single-GPU limit N = 2^24
+TWO_PASS_SWEEP = [(word, m) for word in (64, 32) for m in range(fused.max_logn(word) + 1, 25)]
+
+
+@pytest.mark.parametrize("word,m", TWO_PASS_SWEEP, ids=lambda v: str(v))
+def test_round_geometry_fits_and_covers_every_stage(word, m):
+    """K4 / K5's tile (twopass.round_tile_log) at the API's split, for K4 and
+    for K5 in both output layouts: the exchange buffer fits one block's
+    shared memory and holds every column / row padded by one word a bank
+    row; a column tile's row segments (and the words of a column that K5
+    stores together in the transposed layout) fill at least one 32-byte
+    sector, two on rows of 64 words or fewer; the tile spans at most the
+    other axis.  That the launcher's rounds cover every stage is held on
+    the card, bit for bit at every m (chip_smoke.py)."""
+    n1 = sixstep.word_split(1 << m, word)
+    for rows, transposed in ((False, False), (True, False), (True, True)):
+        axis_log, other_log = (m - n1, n1) if rows else (n1, m - n1)
+        lg = twopass.round_tile_log(n1, m - n1, word, rows, transposed)
+        assert 0 <= lg <= other_log
+        n, size = 1 << axis_log, word // 8
+        smem = twopass.round_smem(axis_log, lg, word)
+        assert (n + (n - 1) // twopass.bank_row(word)) * size << lg <= smem <= fused.SMEM_BYTES
+        if not rows:
+            sectors = 2 if m - n1 <= twopass.SHORT_ROW_LOG else 1
+            assert size << lg >= sectors * twopass.SECTOR_BYTES
+        elif transposed:
+            assert size << lg >= twopass.SECTOR_BYTES
+
+
+@pytest.mark.parametrize("word", [64, 32])
+def test_chip_smoke_bounds_the_two_pass_sweep(word):
+    """chip_smoke times K4 / K5 at every m of the sweep, 2^24 words a call:
+    its kernel table finds each one's work, bound, source and TPU
+    counterpart there."""
+    import chip_smoke
+
+    ms = range(chip_smoke.TWO_PASS_FIRST_M[word], chip_smoke.TWO_PASS_LAST_M + 1)
+    assert list(ms) == [m for w, m in TWO_PASS_SWEEP if w == word]
+    for m in ms:
+        n1 = sixstep.word_split(1 << m, word)
+        batch = chip_smoke.WORDS_PER_M >> m
+        for kernel in ("fwd_cols", "fwd_rows"):
+            nbytes, muls = chip_smoke.kernel_work(kernel, m, n1, batch, word)
+            assert nbytes >= 2 * chip_smoke.WORDS_PER_M * word // 8 and muls > 0
+            b_ms, b_by = chip_smoke.bound(nbytes, muls)
+            assert b_ms > 0 and b_by == "bytes"
+            assert kernel in chip_smoke.SOURCES and kernel in chip_smoke.REPLACES
