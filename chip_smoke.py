@@ -33,13 +33,14 @@ Phases, each of which raises on failure (nothing is caught):
    word) against their plain versions, bit for bit, at N = 2^16 batch 128
    and N = 2^20 batch 16 at both widths and N = 2^24 batch 1 at 62 bits;
    at N = 2^16 two rows of the forward against the NTT by its definition;
-7. K4 / K5 at every m they serve in the API: at both widths and every m
+7. K4-K7 at every m they serve in the API: at both widths and every m
    from 1 to 24 at the API's split (the 'sixstep' variant takes any m; its
    split gives N1 = 2 up to m = 8 and N2 = 1 at m = 1, so every
    instantiation of 2, 4, 8 and 16 words a thread runs), batch 3, and at
-   m = 16 batch 300 (more than one wave of blocks), K4 on inputs below 4q
-   and K5 strict and lazy in both output layouts equal to their plain
-   versions, bit for bit;
+   m = 16 batch 300 (more than one wave of blocks), K4 on inputs below 4q,
+   K5 strict and lazy in both output layouts, K6 from both input layouts
+   (and equal between them), K7, and K7 with a final-stage constant one
+   bit wider than the word equal to their plain versions, bit for bit;
 8. main path beyond one block: with every launch count set to 0, the CKKS
    product of 128 residue polynomials at N = 2^16 (both widths), round
    trips at N = 2^20 (batch 16, both widths) and N = 2^24 (batch 1), and
@@ -63,11 +64,13 @@ Phases, each of which raises on failure (nothing is caught):
    CUDA graph of launches between two CUDA events, so the host's launch
    overhead stays out); the plain versions and the API calls between two
    CUDA events around one call.  K1 / K2 at every m from 10 to
-   max_logn(word), and K4 / K5 at every m of phase 7, at 2^24 words a
-   call, beside their bounds; the lab kernels and K1 at the lab's shape,
-   the lab kernels' plain versions at batch 32, and diag_copy's and
-   diag_moves's one-call PyTorch equivalents (``clone``, ``flip``) as the
-   lab kernels are timed.
+   max_logn(word), and K4-K7 at every m from 15 (word 64) / 16 (word 32)
+   to 24, at 2^24 words a call, beside their bounds; K4-K7 at the sizes of
+   phase 6, K5 and K6 also in the transposed layout that the product keeps
+   between them; the lab kernels and K1 at the lab's shape, the lab
+   kernels' plain versions at batch 32, and diag_copy's and diag_moves's
+   one-call PyTorch equivalents (``clone``, ``flip``) as the lab kernels
+   are timed.
 
 Every phase line is followed by the wall clock the phase took, and the
 times phase ends with the wall clock of every phase.
@@ -98,11 +101,11 @@ FIXTURES_WITHIN = tuple(range(15))  # m 8-15: 'auto' is pallas-fused (K1 / K2)
 FIXTURES_BEYOND = (15, 16, 17, 18)
 BATCH_EVERY_M = 3  # K1 / K2 at every m: a small odd batch
 BATCH_WAVES = 500  # and at m14 more polynomials than one wave of blocks
-WORDS_PER_M = 1 << 24  # K1 / K2 timed at m 10-14 (15), K4 / K5 at m 15 (16)-24, at
+WORDS_PER_M = 1 << 24  # K1 / K2 timed at m 10-14 (15), K4-K7 at m 15 (16)-24, at
 # this many words a call
-TWO_PASS_FIRST_M = {64: 15, 32: 16}  # K4 / K5 at every m from the first beyond K1
+TWO_PASS_FIRST_M = {64: 15, 32: 16}  # K4-K7 timed at every m from the first beyond K1
 TWO_PASS_LAST_M = 24
-BATCH_TWO_PASS_WAVES = 300  # K4 / K5 at m16: more polynomials than one wave of blocks
+BATCH_TWO_PASS_WAVES = 300  # K4-K7 at m16: more polynomials than one wave of blocks
 CSRC = "ntt_tpu_torch/csrc/"
 LAB = "tools/pallas_lab.py:"
 LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
@@ -367,6 +370,22 @@ def main() -> int:
         return out, sixstep.inv_sixstep(f, ops, tabs.w_inv, tabs.w_inv_con, inv_c[0],
                                         inv_c[1], tmp_w, con_w, p.q)
 
+    def wide_inv_cols(p, plan, r, n1):
+        """K7 launched directly with the same wide final-stage constant, at
+        the tile its wrapper takes, and its plain version."""
+        ops, tabs = pick_ops(p.q), plan.device_tables(dev)
+        n_inv, n_inv_con = plan.inv_consts[:2]
+        tmp_w = p.q + p.q // 3
+        con_w = (tmp_w << plan.word) // p.q
+        out = torch.empty_like(r)
+        tc = twopass.round_tile_log(n1, p.m - n1, plan.word, rows=False)
+        native.launch(f"inv_cols_u{plan.word}", r.data_ptr(), out.data_ptr(),
+                      tabs.w_inv.data_ptr(), tabs.w_inv_con.data_ptr(), p.q, n_inv,
+                      n_inv_con, tmp_w, con_w & ((1 << plan.word) - 1), con_w >> plan.word,
+                      r.shape[0], n1, p.m - n1, tc, native.stream(dev))
+        return out, sixstep.inv_cols(r, ops, tabs.w_inv, tabs.w_inv_con, n_inv, n_inv_con,
+                                     tmp_w, con_w, p.q, n1)
+
     phase(f"kernel vs plain, batch {BATCH_CHECK}")
     for case in CASES:
         p = params[case]
@@ -533,34 +552,23 @@ def main() -> int:
         if not torch.equal(k6, k6t):
             raise AssertionError(f"{tag}: K6 differs between the two input layouts")
         k7 = twopass.inv_cols(k6, plan, n1)
-        n_inv, n_inv_con, f_tmp, f_con = plan.inv_consts
         note(f"inv_cols_{word}", k7, sixstep.inv_cols(k6, ops, tabs.w_inv, tabs.w_inv_con,
-                                                      n_inv, n_inv_con, f_tmp, f_con, p.q, n1),
+                                                      *plan.inv_consts, p.q, n1),
              f"{tag} K7 inv_cols")
         if not torch.equal(k7, a):
             raise AssertionError(f"{tag}: K7(K6(K5(K4(a)))) != a")
         # K7's branch for a final-stage constant one bit wider than the word,
         # driven directly as K2's is above
-        tmp_w = p.q + p.q // 3
-        con_w = (tmp_w << plan.word) // p.q
-        wide = torch.empty_like(k6)
-        tc = twopass.tile_log(n1, p.m - n1, plan.word, rows=False)
-        native.launch(f"inv_cols_{word}", k6.data_ptr(), wide.data_ptr(),
-                      tabs.w_inv.data_ptr(), tabs.w_inv_con.data_ptr(), p.q, n_inv,
-                      n_inv_con, tmp_w, con_w & ((1 << plan.word) - 1), con_w >> plan.word,
-                      batch, n1, p.m - n1, tc, native.stream(dev))
-        note(f"inv_cols_{word}", wide,
-             sixstep.inv_cols(k6, ops, tabs.w_inv, tabs.w_inv_con, n_inv, n_inv_con, tmp_w,
-                              con_w, p.q, n1),
+        note(f"inv_cols_{word}", *wide_inv_cols(p, plan, k6, n1),
              f"{tag} K7 inv_cols with a {plan.word + 1}-bit final constant")
         if p.m <= 17:
             js = check_ntt_rows(p, a, k5[True, False], k5[False, False], tag)
             print(f"  {tag}: two rows of K4 + K5 (strict, lazy mod q) at outputs {js} match "
                   "the NTT by definition", flush=True)
-        del a, k4, k5, k6, k6t, k7, wide
+        del a, k4, k5, k6, k6t, k7
         torch.cuda.empty_cache()
 
-    phase(f"K4 / K5 vs plain at every m from 1 to {TWO_PASS_LAST_M} (batch {BATCH_EVERY_M}), "
+    phase(f"K4-K7 vs plain at every m from 1 to {TWO_PASS_LAST_M} (batch {BATCH_EVERY_M}), "
           f"and at m16 batch {BATCH_TWO_PASS_WAVES}")
     for word in (64, 32):
         done = []
@@ -573,18 +581,34 @@ def main() -> int:
                 c = sixstep.fwd_cols(a, ops, tabs.w, tabs.w_con, p.q, n1)
                 note(f"fwd_cols_u{word}", twopass.fwd_cols(a, plan, n1), c,
                      f"{tag} K4 on input < 4q", quiet=True)
+                f = {}
                 for strict in (True, False):
                     for keep_t in (False, True):
+                        f[strict, keep_t] = sixstep.fwd_rows(c, ops, tabs.w, tabs.w_con, p.q, n1,
+                                                             strict, keep_t)
                         note(f"fwd_rows_u{word}", twopass.fwd_rows(c, plan, n1, strict, keep_t),
-                             sixstep.fwd_rows(c, ops, tabs.w, tabs.w_con, p.q, n1, strict,
-                                              keep_t),
-                             f"{tag} K5 {'strict' if strict else 'lazy'}"
+                             f[strict, keep_t], f"{tag} K5 {'strict' if strict else 'lazy'}"
                              f"{', kept transposed' if keep_t else ''}", quiet=True)
+                r = sixstep.inv_rows(f[True, False], ops, tabs.w_inv, tabs.w_inv_con, p.q, n1)
+                k6 = twopass.inv_rows(f[True, False], plan, n1)
+                note(f"inv_rows_u{word}", k6, r, f"{tag} K6", quiet=True)
+                k6t = twopass.inv_rows(f[True, True], plan, n1, input_transposed=True)
+                note(f"inv_rows_u{word}", k6t,
+                     sixstep.inv_rows(f[True, True], ops, tabs.w_inv, tabs.w_inv_con, p.q, n1,
+                                      True), f"{tag} K6 from the transposed layout", quiet=True)
+                if not torch.equal(k6, k6t):
+                    raise AssertionError(f"{tag}: K6 differs between the two input layouts")
+                note(f"inv_cols_u{word}", twopass.inv_cols(r, plan, n1),
+                     sixstep.inv_cols(r, ops, tabs.w_inv, tabs.w_inv_con, *plan.inv_consts,
+                                      p.q, n1), f"{tag} K7", quiet=True)
+                note(f"inv_cols_u{word}", *wide_inv_cols(p, plan, r, n1),
+                     f"{tag} K7 with a {word + 1}-bit final constant", quiet=True)
                 done.append(f"m{m} b{batch}")
-                del a, c
+                del a, c, f, r, k6, k6t
             torch.cuda.empty_cache()
-        print(f"  w{word}: K4 (input < 4q) and K5 (strict, lazy, both layouts) equal to plain "
-              f"at {', '.join(done)}", flush=True)
+        print(f"  w{word}: K4 (input < 4q), K5 (strict, lazy, both layouts), K6 (both "
+              f"layouts), K7 and K7 with a {word + 1}-bit final constant equal to plain at "
+              f"{', '.join(done)}", flush=True)
 
     phase("main path beyond one block: negacyclic_mul m16 batch 128, round trips m20 "
           "batch 16 and m24 batch 1, fixtures 15-18 through 'auto'")
@@ -764,7 +788,7 @@ def main() -> int:
                   f"{b2 * 1e3:.1f}, {b2 / k2_ms:.0%})", flush=True)
             del a, f
 
-    # K4 / K5 at every m of the two-pass sweep, 2^24 words a call, beside their
+    # K4-K7 at every m of the two-pass sweep, 2^24 words a call, beside their
     # bounds; device time from a CUDA graph of launches
     for word in (64, 32):
         for m, p, n1 in two_pass_m(word):
@@ -772,14 +796,20 @@ def main() -> int:
             batch = WORDS_PER_M >> m
             a = rand(p, batch)
             c = twopass.fwd_cols(a, plan, n1)
-            k4_ms = lab.cuda_us(lambda x: twopass.fwd_cols(x, plan, n1), a, 3, lab.INNER) / 1e3
-            k5_ms = lab.cuda_us(lambda x: twopass.fwd_rows(x, plan, n1), c, 3, lab.INNER) / 1e3
-            b4, _ = bound(*kernel_work("fwd_cols", m, n1, batch, word))
-            b5, _ = bound(*kernel_work("fwd_rows", m, n1, batch, word))
-            print(f"  w{word} m{m} batch {batch} (n1_log {n1}): K4 {k4_ms * 1e3:.1f} us (bound "
-                  f"{b4 * 1e3:.1f}, {b4 / k4_ms:.0%}), K5 {k5_ms * 1e3:.1f} us (bound "
-                  f"{b5 * 1e3:.1f}, {b5 / k5_ms:.0%})", flush=True)
-            del a, c
+            f = twopass.fwd_rows(c, plan, n1)
+            r = twopass.inv_rows(f, plan, n1)
+            parts = []
+            for k, name, fn, x in (
+                    ("K4", "fwd_cols", lambda x: twopass.fwd_cols(x, plan, n1), a),
+                    ("K5", "fwd_rows", lambda x: twopass.fwd_rows(x, plan, n1), c),
+                    ("K6", "inv_rows", lambda x: twopass.inv_rows(x, plan, n1), f),
+                    ("K7", "inv_cols", lambda x: twopass.inv_cols(x, plan, n1), r)):
+                k_ms = lab.cuda_us(fn, x, 3, lab.INNER) / 1e3
+                b_ms, _ = bound(*kernel_work(name, m, n1, batch, word))
+                parts.append(f"{k} {k_ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f}, "
+                             f"{b_ms / k_ms:.0%})")
+            print(f"  w{word} m{m} batch {batch} (n1_log {n1}): {', '.join(parts)}", flush=True)
+            del a, c, f, r
         torch.cuda.empty_cache()
 
     for size, batch in TWO_PASS:
@@ -808,6 +838,20 @@ def main() -> int:
             k_ms, p_ms = kernel_in_turns(torch, lab, kern, plain, 2)
             entry(name, launches2[name], k_ms, p_ms, p.m, n1, batch, plan.word,
                   f"{size} batch {batch}", record=main_size)
+        # the product's K5 and K6 keep the transposed layout between them
+        ft = twopass.fwd_rows(c, plan, n1, keep_transposed=True)
+        runs = {
+            f"fwd_rows_{word}": (
+                lambda: twopass.fwd_rows(c, plan, n1, keep_transposed=True),
+                lambda: sixstep.fwd_rows(c, ops, tabs.w, tabs.w_con, p.q, n1, True, True)),
+            f"inv_rows_{word}": (
+                lambda: twopass.inv_rows(ft, plan, n1, input_transposed=True),
+                lambda: sixstep.inv_rows(ft, ops, tabs.w_inv, tabs.w_inv_con, p.q, n1, True)),
+        }
+        for name, (kern, plain) in runs.items():
+            k_ms, p_ms = kernel_in_turns(torch, lab, kern, plain, 2)
+            entry(name, launches2[name], k_ms, p_ms, p.m, n1, batch, plan.word,
+                  f"{size} batch {batch}, the transposed layout", record=False)
         if main_size:
             x, y = he2[size]
             k_ms, p_ms = kernel_in_turns(torch, lab, lambda: pointwise.mul_mod(x, y, p.q),
@@ -822,7 +866,7 @@ def main() -> int:
             print(f"  {size} negacyclic_mul batch {batch}: kernels {k_ms * 1e3:.1f} us "
                   f"({batch / k_ms * 1e3:,.0f} products/s), plain {p_ms * 1e3:.1f} us, "
                   f"sum of the seven launches' bounds {b_ms * 1e3:.1f} us", flush=True)
-        del a, c, f, r
+        del a, c, f, r, ft
         torch.cuda.empty_cache()
 
     # the lab's kernels at the lab's shape, timed as the lab times them (a

@@ -27,7 +27,8 @@ are the same for every variant.
 layout's split is the JAX package's (``kernels.sixstep.word_split``), so
 the permutation is the JAX package's too.  ``negacyclic_mul`` through
 ``"sixstep"`` (and ``"auto"`` beyond one block) keeps both forwards and the
-product in that layout, as the JAX package's fused product does.
+product in that layout, as the JAX package's fused product does, unless
+the caller passes ``fused=False``.
 """
 
 from __future__ import annotations
@@ -227,15 +228,23 @@ def pointwise_mul(a, b, params_or_plan, device="cuda"):
     return mm.to_host(out) if host else out
 
 
-def negacyclic_mul(a, b, params_or_plan, variant: str = "auto", device="cuda"):
+def negacyclic_mul(a, b, params_or_plan, variant: str = "auto", fused: bool = True,
+                   device="cuda"):
     """Polynomial product in R_q[X]/(X^N + 1): forward NTT of both operands,
     pointwise product, inverse NTT, all on the device; strict output.
-    Through the six-step the operands stay in the transposed layout from
-    the forwards to the inverse."""
+
+    With fused (the default, as in the JAX package) and variant ``"auto"``
+    or ``"sixstep"``, the product runs as one pipeline: through the
+    six-step the operands stay in the transposed layout from the forwards
+    to the inverse.  Any other variant, or fused=False, composes fwd_ntt,
+    pointwise_mul and inv_ntt through that variant (``"auto"`` resolved as
+    fwd_ntt resolves it).  The bits are the same either way."""
     plan = _resolve(params_or_plan)
     _same_kind(a, b)
+    if variant not in ("auto", "sixstep"):
+        fused = False
     v = _pick(plan, variant, inverse=True)
-    if v.name == "sixstep":
+    if fused and v.name == "sixstep":
         v = get_variant("sixstep-unordered")
     x, host = _to_device(a, plan, device)
     y, _ = _to_device(b, plan, device)

@@ -52,17 +52,23 @@
 //   * Blocks are numbered batch-fastest, so the blocks running together on
 //     the card work on the same rows of different polynomials and share the
 //     row twiddles in L2.
-// K4 and K5 (redesigned after K1 / K2) run the register rounds of rounds.cuh
-// on their tile: each thread holds 2^K words of one column or row and
-// runs K stages on them with no barrier, reading each twiddle pair once
-// a round, and the block exchanges the tile through padded shared memory only
-// between rounds (one barrier a round, where the first design had one a
-// stage).  The first round loads from device memory straight into registers
-// (a warp's lanes walk K4's TC columns, or K5's consecutive groups of a row:
-// whole sectors); K4's last round stores from registers the same way, K5's
+// All four run the register rounds of rounds.cuh on their tile (K4 / K5
+// forward, K6 / K7 inverse, as K1 / K2 run them on a whole polynomial): each
+// thread holds 2^K words of one column or row and runs K stages on them with
+// no barrier, reading each twiddle pair once a round, and the block exchanges
+// the tile through padded shared memory only between rounds (one barrier a
+// round, where the first design had one a stage).  A warp's lanes walk the
+// TC columns of a group (K4, K7: each register's load or store moves whole
+// row segments of TC words) or the consecutive groups of a row (K5, K6).  The
+// first round loads from device memory straight into registers: K4 / K5 at
+// stride N / R, K7 at T = 1, K6 at T = 1 with 16-byte loads of the R
+// consecutive words of a row (from the (N2, N1) layout K6 first stages the
+// tile into the exchange buffer, TR consecutive words a column).  The last
+// round stores from registers (K4; K6 at stride N2 / R, consecutive words
+// across a warp; K7 after the fused final stage, strict), except K5's, which
 // goes through the exchange buffer for the strict reduce and the layout of
 // its output.  Row r's twiddle base N1 + r keeps every index the flat
-// transform's.  K6 and K7 keep the first design: one __syncthreads() a stage.
+// transform's.
 // Element offsets into device memory are size_t: batch x N passes 2^31.
 #include <climits>
 
@@ -76,7 +82,7 @@ namespace ntt {
 constexpr int kTileThreads = 512;
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a Hopper block can use
 
-// K4 / K5's bound on registers at each width: room for kMinBlocks blocks of
+// K4-K7's bound on registers at each width: room for kMinBlocks blocks of
 // kTileThreads threads on an SM.
 template <typename T>
 struct TwoPass;
@@ -89,28 +95,17 @@ struct TwoPass<u64> {
   static constexpr int kMinBlocks = 1;
 };
 
-// Words between the starts of two rows of a row tile: N2 plus a pad that puts
-// the TR rows of one column (the transposed accesses) in distinct banks.
-__host__ __device__ inline int row_pitch(int n2_log, int tr_log, int word_bytes) {
-  const int pad = 128 / (word_bytes << tr_log);
-  return (1 << n2_log) + (pad > 1 ? pad : 1);
-}
-
-inline int tile_threads(int count) {
-  const int half = count >> 1;
-  return half < kTileThreads ? (half > 0 ? half : 1) : kTileThreads;
-}
-
 // ---------------------------------------------------------------------------
 // column passes: tile (N1, TC) at columns [c0, c0 + TC) of one polynomial
 // ---------------------------------------------------------------------------
 
-// K4's map: the TC = 2^vlog columns of an (N1, TC) column tile.  Word x of
+// K4 / K7's map: the TC = 2^vlog columns of an (N1, TC) column tile.  Word x of
 // column v is row x; in the exchange buffer column v is a padded polynomial
 // at v * pitch.  The lanes of a warp walk the TC columns of a group fastest,
 // so each load or store of a register moves whole row segments of TC words.
 template <typename T>
 struct ColRounds {
+  static constexpr bool vec = false;  // a column's words are N2 apart
   int logn, vlog, n2_log, pitch;
   __device__ __forceinline__ void lane(int j, int, int& v, int& g) const {
     v = j & ((1 << vlog) - 1);
@@ -139,99 +134,36 @@ fwd_cols_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
   tile_forward<T, K>(tl, in + tile, out + tile, sm, w, w_con, q);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-inv_cols_kernel(const T* __restrict__ in, T* __restrict__ out,
-                const T* __restrict__ w, const T* __restrict__ w_con, T q,
-                FinalConsts<T> fc, int batch, int n1_log, int n2_log, int tc_log) {
+// K7: the inverse column stages of one (N1, TC) tile in rounds of K, from
+// the last down to the fused final stage (n^-1 folded in), loaded from device
+// memory into the first round's registers and stored, strict and in the
+// standard order, from the last round's (row segments of TC words).
+template <typename T, int K>
+__global__ void __launch_bounds__(kTileThreads, TwoPass<T>::kMinBlocks)
+inv_cols_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
+                const T* __restrict__ w_con, T q, FinalConsts<T> fc, int batch, int n1_log,
+                int n2_log, int tc_log, int pitch) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const int tc = 1 << tc_log;
-  const int count = 1 << (n1_log + tc_log);
-  const size_t base = ((size_t)(blockIdx.x % batch) << (n1_log + n2_log)) +
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const size_t tile = ((size_t)(blockIdx.x % batch) << (n1_log + n2_log)) +
                       ((size_t)(blockIdx.x / batch) << tc_log);
-
-  for (int i = threadIdx.x; i < count; i += blockDim.x)
-    s[i] = in[base + ((size_t)(i >> tc_log) << n2_log) + (i & (tc - 1))];
-  __syncthreads();
-
-  // Gentleman-Sande column stages m = N1/2 .. 2
-  for (int st = n1_log - 1; st >= 1; --st) {
-    const int m = 1 << st;
-    const int lt = n1_log - 1 - st;
-    for (int j = threadIdx.x; j < (count >> 1); j += blockDim.x) {
-      const int c = j & (tc - 1);
-      const StageIndex ix(j >> tc_log, lt);
-      T x = s[(ix.i0 << tc_log) + c];
-      T y = s[(ix.i1 << tc_log) + c];
-      bkw_bfly<T>(x, y, __ldg(w + m + ix.g), __ldg(w_con + m + ix.g), q);
-      s[(ix.i0 << tc_log) + c] = x;
-      s[(ix.i1 << tc_log) + c] = y;
-    }
-    __syncthreads();
-  }
-
-  // fused final stage: row r pairs with row r + N1/2; stored straight to
-  // device memory
-  const int half_rows = 1 << (n1_log - 1);
-  for (int j = threadIdx.x; j < (count >> 1); j += blockDim.x) {
-    const int c = j & (tc - 1);
-    const int r = j >> tc_log;
-    T x = s[(r << tc_log) + c];
-    T y = s[((r + half_rows) << tc_log) + c];
-    bkw_final<T>(x, y, fc, q);
-    out[base + ((size_t)r << n2_log) + c] = x;
-    out[base + ((size_t)(r + half_rows) << n2_log) + c] = y;
-  }
+  const ColRounds<T> tl{n1_log, tc_log, n2_log, pitch};
+  tile_inverse<T, K>(tl, in + tile, out + tile, sm, w, w_con, q, fc, true);
 }
 
 // ---------------------------------------------------------------------------
 // row passes: tile of TR rows [r0, r0 + TR) of one polynomial, row pitch P
 // ---------------------------------------------------------------------------
 
-// Tile element (rr, k) <-> device memory, in the (N1, N2) layout (rows
-// contiguous) or the (N2, N1) layout (element (r, k) at k*N1 + r).  With
-// transposed, consecutive i walk the TR rows of one column: TR consecutive
-// words of device memory.
-struct RowTile {
-  int n1_log, n2_log, tr_log, pitch;
-  size_t poly;  // offset of the polynomial
-  int r0;
-
-  __device__ __forceinline__ size_t dev(int i, bool transposed, int& sm) const {
-    if (transposed) {
-      const int k = i >> tr_log;
-      const int rr = i & ((1 << tr_log) - 1);
-      sm = rr * pitch + k;
-      return poly + ((size_t)k << n1_log) + r0 + rr;
-    }
-    const int rr = i >> n2_log;
-    const int k = i & ((1 << n2_log) - 1);
-    sm = rr * pitch + k;
-    return poly + ((size_t)r0 << n2_log) + i;
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ RowTile row_tile(int batch, int n1_log, int n2_log,
-                                            int tr_log) {
-  RowTile t;
-  t.n1_log = n1_log;
-  t.n2_log = n2_log;
-  t.tr_log = tr_log;
-  t.pitch = row_pitch(n2_log, tr_log, (int)sizeof(T));
-  t.poly = (size_t)(blockIdx.x % batch) << (n1_log + n2_log);
-  t.r0 = (int)(blockIdx.x / batch) << tr_log;
-  return t;
-}
-
-// K5's map: the TR = 2^vlog rows r0 .. r0 + TR - 1 of a row tile.  Word x of
-// row v is column x, the rows contiguous in device memory; in the exchange
-// buffer row v is a padded polynomial at v * pitch.  The lanes of a warp walk
-// the groups of a row fastest; row v's twiddle base is N1 + r0 + v.
+// K5 / K6's map: the TR = 2^vlog rows r0 .. r0 + TR - 1 of a row tile.  Word
+// x of row v is column x, the rows contiguous in device memory; in the
+// exchange buffer row v is a padded polynomial at v * pitch.  The lanes of a
+// warp walk the groups of a row fastest; row v's twiddle base is N1 + r0 + v.
+// vec: the tile's input and output are 16-byte aligned (K6 sets it).
 template <typename T>
 struct RowRounds {
   int logn, vlog, base0, pitch;
+  bool vec = false;
   __device__ __forceinline__ void lane(int j, int glog, int& v, int& g) const {
     v = j >> glog;
     g = j & ((1 << glog) - 1);
@@ -296,47 +228,53 @@ fwd_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads)
-inv_rows_kernel(const T* __restrict__ in, T* __restrict__ out,
-                const T* __restrict__ w, const T* __restrict__ w_con, T q,
-                int batch, int n1_log, int n2_log, int tr_log, int in_transposed) {
+// K6: the inverse row stages of TR rows in rounds of K, from the last down.
+// From the (N1, N2) layout the first round loads each group's R consecutive
+// words from device memory into registers; from the (N2, N1) layout the tile
+// is first staged into the exchange buffer, TR consecutive words a column,
+// and the first round reads it there.  The last round stores from registers
+// into the (N1, N2) layout, consecutive words across a warp.
+template <typename T, int K>
+__global__ void __launch_bounds__(kTileThreads, TwoPass<T>::kMinBlocks)
+inv_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
+                const T* __restrict__ w_con, T q, int batch, int n1_log, int n2_log,
+                int tr_log, int pitch, int in_transposed) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s = reinterpret_cast<T*>(smem_raw);
-  const RowTile t = row_tile<T>(batch, n1_log, n2_log, tr_log);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const size_t poly = (size_t)(blockIdx.x % batch) << (n1_log + n2_log);
+  const int r0 = (int)(blockIdx.x / batch) << tr_log;
+  const size_t tile = poly + ((size_t)r0 << n2_log);
   const int count = 1 << (n2_log + tr_log);
-
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    int sm;
-    const size_t g = t.dev(i, in_transposed != 0, sm);
-    s[sm] = in[g];
+  if (n2_log == 0) {  // rows of one word: no stages, and the two layouts agree
+    for (int i = threadIdx.x; i < count; i += blockDim.x) out[tile + i] = in[tile + i];
+    return;
   }
-  __syncthreads();
-
-  // Gentleman-Sande row stages, global m = N/2 .. N1
-  for (int st = n2_log - 1; st >= 0; --st) {
-    const int m2 = 1 << st;
-    const int lt = n2_log - 1 - st;
-    const size_t tw0 = ((size_t)m2 << n1_log) + (size_t)t.r0 * m2;
-    for (int j = threadIdx.x; j < (count >> 1); j += blockDim.x) {
-      const int rr = j >> (n2_log - 1);
-      const StageIndex ix(j & ((1 << (n2_log - 1)) - 1), lt);
-      const size_t k = tw0 + (size_t)rr * m2 + ix.g;
-      T* row = s + rr * t.pitch;
-      T x = row[ix.i0];
-      T y = row[ix.i1];
-      bkw_bfly<T>(x, y, __ldg(w + k), __ldg(w_con + k), q);
-      row[ix.i0] = x;
-      row[ix.i1] = y;
+  const bool aligned =
+      ((reinterpret_cast<size_t>(in) | reinterpret_cast<size_t>(out)) & 15) == 0;
+  const RowRounds<T> tl{n2_log, tr_log, (1 << n1_log) + r0, pitch, aligned};
+  const T* gin = in + tile;
+  if (in_transposed) {
+    // R loads in flight a thread before its stores: count is a multiple of
+    // R x blockDim.x (the launcher gives at most one thread a group)
+    constexpr int R = 1 << K;
+    const int mask = (1 << tr_log) - 1;
+    for (int i0 = threadIdx.x; i0 < count; i0 += R * blockDim.x) {
+      T x[R];
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int i = i0 + u * blockDim.x;
+        x[u] = __ldg(in + poly + ((size_t)(i >> tr_log) << n1_log) + r0 + (i & mask));
+      }
+#pragma unroll
+      for (int u = 0; u < R; ++u) {
+        const int i = i0 + u * blockDim.x;
+        sm[tl.sm(i & mask, i >> tr_log)] = x[u];
+      }
     }
     __syncthreads();
+    gin = nullptr;
   }
-
-  for (int i = threadIdx.x; i < count; i += blockDim.x) {
-    int sm;
-    const size_t g = t.dev(i, false, sm);
-    out[g] = s[sm];
-  }
+  tile_inverse<T, K>(tl, gin, out + tile, sm, w, w_con, q, FinalConsts<T>(), false);
 }
 
 // ---------------------------------------------------------------------------
@@ -354,14 +292,7 @@ inline long long pass_blocks(int batch, int n1_log, int n2_log, int tile_log,
   return blocks <= INT_MAX ? blocks : 0;
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
-// K4 / K5's rounds on a tile of 2^vlog transforms of 2^logn words: K stages
+// K4-K7's rounds on a tile of 2^vlog transforms of 2^logn words: K stages
 // a round, 2^K words a group (K = 4, fewer on a shorter transform; logn = 0
 // takes K = 1 and runs no round), two groups a thread (at least a warp, at
 // most kTileThreads), and an exchange buffer of `pitch` words a transform: a
@@ -418,21 +349,14 @@ int launch_inv_cols(const void* in, void* out, const void* w, const void* w_con,
                     void* stream) {
   const long long blocks = pass_blocks(batch, n1_log, n2_log, tc_log, n2_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
-  const int count = 1 << (n1_log + tc_log);
-  const size_t smem = sizeof(T) * count;
-  cudaError_t err = prepare(inv_cols_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  FinalConsts<T> fc;
-  fc.n_inv = (T)n_inv;
-  fc.n_inv_con = (T)n_inv_con;
-  fc.tmp = (T)f_tmp;
-  fc.con_lo = (T)f_con_lo;
-  fc.con_hi = f_con_hi;
-  inv_cols_kernel<T><<<(unsigned)blocks, tile_threads(count), smem,
-                       (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q, fc, batch, n1_log,
-      n2_log, tc_log);
-  return (int)cudaGetLastError();
+  int pitch;
+  const size_t smem = round_smem<T>(n1_log, tc_log, pitch);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const FinalConsts<T> fc{(T)n_inv, (T)n_inv_con, (T)f_tmp, (T)f_con_lo, f_con_hi};
+  return launch_blocks(NTT_BY_LOG_R(inv_cols_kernel, T, round_log(n1_log)), (int)blocks,
+                       round_threads(n1_log, tc_log), smem,
+                       stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q, fc,
+                       batch, n1_log, n2_log, tc_log, pitch);
 }
 
 template <typename T>
@@ -450,24 +374,22 @@ int launch_fwd_rows(const void* in, void* out, const void* w, const void* w_con,
                        batch, n1_log, n2_log, tr_log, pitch, strict, out_transposed);
 }
 
-#undef NTT_BY_LOG_R
-
 template <typename T>
 int launch_inv_rows(const void* in, void* out, const void* w, const void* w_con,
                     u64 q, int batch, int n1_log, int n2_log, int tr_log,
                     int in_transposed, void* stream) {
   const long long blocks = pass_blocks(batch, n1_log, n2_log, tr_log, n1_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
-  const int count = 1 << (n2_log + tr_log);
-  const size_t smem = sizeof(T) * ((size_t)row_pitch(n2_log, tr_log, sizeof(T)) << tr_log);
-  cudaError_t err = prepare(inv_rows_kernel<T>, smem);
-  if (err != cudaSuccess) return (int)err;
-  inv_rows_kernel<T><<<(unsigned)blocks, tile_threads(count), smem,
-                       (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q, batch, n1_log,
-      n2_log, tr_log, in_transposed);
-  return (int)cudaGetLastError();
+  int pitch;
+  const size_t smem = round_smem<T>(n2_log, tr_log, pitch);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  return launch_blocks(NTT_BY_LOG_R(inv_rows_kernel, T, round_log(n2_log)), (int)blocks,
+                       round_threads(n2_log, tr_log), smem,
+                       stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q,
+                       batch, n1_log, n2_log, tr_log, pitch, in_transposed);
 }
+
+#undef NTT_BY_LOG_R
 
 }  // namespace ntt
 

@@ -1,5 +1,6 @@
 // Register rounds: the building block of the fused transforms K1 / K2
-// (ntt_fused.cu).
+// (ntt_fused.cu) and, on tiles, of the two-pass kernels K4-K7
+// (ntt_sixstep.cu).
 //
 // A round runs K consecutive radix-2 stages of one polynomial with no
 // barrier: each thread holds R = 2^K coefficients in registers, the ones
@@ -255,15 +256,15 @@ __device__ __forceinline__ void run_round(const T* __restrict__ gin, T* __restri
 
 // ---------------------------------------------------------------------------
 // Rounds on a tile: 2^vlog independent transforms of 2^logn words each in one
-// block (K4: the TC columns of an (N1, TC) column tile; K5: the TR rows of a
-// row tile; ntt_sixstep.cu).  Each transform runs the rounds above with its
-// own twiddle base: the first twiddle index of group hi in a round from s0 is
-// (base << s0) + hi, base 1 for the whole polynomial and for K4's columns
-// (column stage s of row r is flat stage s, index 2^s + (r >> (log2 N1 -
-// s))), N1 + r for K5's row r (row stage s' of word k is flat stage log2 N1 +
+// block (K4 / K7: the TC columns of an (N1, TC) column tile; K5 / K6: the TR
+// rows of a row tile; ntt_sixstep.cu).  Each transform runs the rounds above
+// with its own twiddle base: the first twiddle index of group hi in a round
+// from s0 is (base << s0) + hi, base 1 for the whole polynomial and for the
+// columns (column stage s of row r is flat stage s, index 2^s + (r >> (log2
+// N1 - s))), N1 + r for row r (row stage s' of word k is flat stage log2 N1 +
 // s', index ((N1 + r) << s') + (k >> (log2 N2 - s'))).  So every word meets
-// the flat transform's butterflies and twiddles, and the bits, lazy
-// representatives included, are the flat transform's.
+// the flat transform's butterflies and twiddles, forward or inverse, and the
+// bits, lazy representatives included, are the flat transform's.
 //
 // The kernel supplies the map, a Tile with
 //   logn, vlog               the transforms' size and count (log2);
@@ -272,22 +273,32 @@ __device__ __forceinline__ void run_round(const T* __restrict__ gin, T* __restri
 //   dev(v, x)                word x of transform v in device memory,
 //                            relative to the tile's start;
 //   sm(v, x)                 word x of transform v in the exchange buffer;
-//   base(v)                  the transform's twiddle base.
+//   base(v)                  the transform's twiddle base;
+//   vec                      true where a transform's words are contiguous
+//                            in device memory and 16-byte aligned: the
+//                            inverse then moves a T = 1 round's R words
+//                            with 16-byte loads and stores.
 // ---------------------------------------------------------------------------
 
-// One round over stages s0 .. s0 + ns - 1 of every transform of the tile:
-// each group from device memory (gin) or the exchange buffer, its stages in
-// registers, and back to device memory (gout) or the exchange buffer.
-template <typename T, int K, class Tile>
+// One round over stages s0 .. s0 + ns - 1 of every transform of the tile,
+// forward or inverse (with final, local stage 0 at s0 = 0 is the fused final
+// stage): each group from device memory (gin) or the exchange buffer, its
+// stages in registers, and back to device memory (gout) or the exchange
+// buffer.
+template <typename T, int K, bool INV = false, class Tile>
 __device__ __forceinline__ void tile_round(const Tile& tl, const T* __restrict__ gin,
                                            T* __restrict__ gout, T* sm,
                                            const T* __restrict__ w,
-                                           const T* __restrict__ w_con, T q, int s0, int ns) {
+                                           const T* __restrict__ w_con, T q, int s0, int ns,
+                                           const FinalConsts<T>& fc = FinalConsts<T>(),
+                                           bool final = false) {
   constexpr int R = 1 << K;
   const int logt = tl.logn - s0 - K;
   const int t = 1 << logt;
   const int glog = tl.logn - K;
   const int slots = 1 << (glog + tl.vlog);
+  bool vec = false;
+  if constexpr (INV) vec = logt == 0 && tl.vec;
 #pragma unroll 1
   for (int j = threadIdx.x; j < slots; j += blockDim.x) {
     int v, g, hi;
@@ -295,16 +306,28 @@ __device__ __forceinline__ void tile_round(const Tile& tl, const T* __restrict__
     const int base = group_base<T, K>(g, logt, s0, hi);
     T x[R];
     if (gin) {
+      if (vec) {
+        load_group<T, R>(x, gin + tl.dev(v, base), 1, true);
+      } else {
 #pragma unroll
-      for (int i = 0; i < R; ++i) x[i] = __ldg(gin + tl.dev(v, base + i * t));
+        for (int i = 0; i < R; ++i) x[i] = __ldg(gin + tl.dev(v, base + i * t));
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < R; ++i) x[i] = sm[tl.sm(v, base + i * t)];
     }
-    fwd_stages<T, K>(x, w, w_con, q, (tl.base(v) << s0) + hi, ns);
+    if constexpr (INV) {
+      inv_stages<T, K>(x, w, w_con, q, fc, (tl.base(v) << s0) + hi, ns, final && s0 == 0);
+    } else {
+      fwd_stages<T, K>(x, w, w_con, q, (tl.base(v) << s0) + hi, ns);
+    }
     if (gout) {
+      if (vec) {
+        store_group<T, R>(x, gout + tl.dev(v, base), 1, true);
+      } else {
 #pragma unroll
-      for (int i = 0; i < R; ++i) gout[tl.dev(v, base + i * t)] = x[i];
+        for (int i = 0; i < R; ++i) gout[tl.dev(v, base + i * t)] = x[i];
+      }
     } else {
 #pragma unroll
       for (int i = 0; i < R; ++i) sm[tl.sm(v, base + i * t)] = x[i];
@@ -333,6 +356,28 @@ __device__ __forceinline__ void tile_forward(const Tile& tl, const T* __restrict
     const bool last = s0 + ns == tl.logn;
     tile_round<T, K>(tl, s0 == 0 ? gin : nullptr, last ? gout : nullptr, sm, w, w_con, q, s0,
                      ns);
+    if (!last) __syncthreads();
+  }
+}
+
+// The whole inverse of every transform of the tile in rounds of K stages (1 <=
+// K <= logn), the mirror image of tile_forward: rounds from s0 = logn - K
+// down, the first (T = 1, R consecutive words) from device memory (gin) or,
+// with gin null, from the exchange buffer, the last (s0 = 0, the remainder
+// stages, stride 2^logn / R) to device memory, with final ending in the fused
+// final stage; one barrier between two rounds.
+template <typename T, int K, class Tile>
+__device__ __forceinline__ void tile_inverse(const Tile& tl, const T* __restrict__ gin,
+                                             T* __restrict__ gout, T* sm,
+                                             const T* __restrict__ w,
+                                             const T* __restrict__ w_con, T q,
+                                             const FinalConsts<T>& fc, bool final) {
+  const int nr = (tl.logn + K - 1) / K;
+  for (int rd = 1; rd <= nr; ++rd) {
+    const bool last = rd == nr;
+    tile_round<T, K, true>(tl, rd == 1 ? gin : nullptr, last ? gout : nullptr, sm, w, w_con,
+                           q, last ? 0 : tl.logn - K * rd,
+                           last ? first_round_stages<K>(tl.logn) : K, fc, final);
     if (!last) __syncthreads();
   }
 }

@@ -19,9 +19,9 @@ What bounds them on an H100: device memory, one read and one write of
 every coefficient per pass, plus the row twiddles in the row passes.
 Every pass takes ``n1_log`` (N1 = 2^n1_log); the API passes the JAX
 package's split (``sixstep.word_split``), which fixes the transposed layout.
-K4 and K5 run register rounds on their tiles, whose size
-``round_tile_log`` picks; K6 and K7, still one stage a pass over shared
-memory, take theirs from ``tile_log``.
+All four run register rounds on their tiles (``csrc/rounds.cuh``), whose
+size ``round_tile_log`` picks: K6 takes K5's row tile in the layout it
+reads, K7 K4's column tile.
 
 A wrapper runs the plain PyTorch version (``kernels/sixstep.py``) for a
 tensor on the CPU and the kernel for a tensor on a CUDA device; it never
@@ -39,44 +39,13 @@ from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.kernels.fused import SMEM_BYTES, cuda_batch
 from ntt_tpu_torch.plan import NttPlan
 
-# Shared memory a K6 / K7 tile aims at: small enough for several blocks per SM.
-TILE_BYTES = 32 * 1024
 SECTOR_BYTES = 32  # one DRAM sector: the least a coalesced access should move
 
 LAUNCHES = {f"{k}_u{w}": 0 for k in ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols")
             for w in (32, 64)}
 
 
-def row_pitch(n2_log: int, tr_log: int, word: int) -> int:
-    """Words between two rows of a row tile (``row_pitch`` in the source)."""
-    return (1 << n2_log) + max(1, 128 // ((word // 8) << tr_log))
-
-
-def tile_log(n1_log: int, n2_log: int, word: int, rows: bool) -> int:
-    """K6 / K7's tile: log2 of the columns (TC) a column tile holds, or with
-    rows, of the rows (TR) a row tile holds: at least a sector's worth of words, more
-    while the tile stays within TILE_BYTES, at most the whole other axis;
-    fewer only where shared memory forces it."""
-    size = word // 8
-    axis_log, other_log = (n2_log, n1_log) if rows else (n1_log, n2_log)
-
-    def tile_bytes(lg):
-        words = row_pitch(n2_log, lg, word) << lg if rows else 1 << (axis_log + lg)
-        return words * size
-
-    lg = (SECTOR_BYTES // size).bit_length() - 1
-    while lg < other_log and tile_bytes(lg + 1) <= TILE_BYTES:
-        lg += 1
-    lg = min(lg, other_log)
-    while lg > 0 and tile_bytes(lg) > SMEM_BYTES:
-        lg -= 1
-    if tile_bytes(lg) > SMEM_BYTES:
-        raise ValueError(f"a {'row' if rows else 'column'} of 2^{axis_log} words of "
-                         f"{word} bits exceeds one block's shared memory")
-    return lg
-
-
-# K4 / K5's tile: the shared memory it aims at; a column tile of short rows
+# K4-K7's tile: the shared memory it aims at; a column tile of short rows
 # (N2 <= 2^SHORT_ROW_LOG) reads row segments of at least two sectors:
 # 32-byte segments of such rows ran K4 at half speed.
 ROUND_TILE_BYTES = 40 * 1024
@@ -89,7 +58,7 @@ def bank_row(word: int) -> int:
 
 
 def round_smem(logn: int, tile_log: int, word: int) -> int:
-    """Bytes of K4 / K5's exchange buffer for 2^tile_log transforms of
+    """Bytes of K4-K7's exchange buffer for 2^tile_log transforms of
     2^logn words (``round_smem`` in the source): each transform padded by
     one word a bank row (rounds.cuh's ``padded``), rounded up to whole bank
     rows, plus row / 2^tile_log words, which puts the transforms' words of
@@ -101,13 +70,13 @@ def round_smem(logn: int, tile_log: int, word: int) -> int:
 
 def round_tile_log(n1_log: int, n2_log: int, word: int, rows: bool,
                    transposed: bool = False) -> int:
-    """K4's tile (or with rows, K5's, storing the (N2, N1) layout with
-    transposed): log2 of its columns (TC) or rows (TR).  A tile's row
-    segments (K4), or the words of a column it stores together (K5
-    transposed), fill at least a sector (two for K4 on short rows); K5 in
-    the (N1, N2) layout stores whole rows and starts from one.  The tile
-    grows while its exchange buffer stays within ROUND_TILE_BYTES and
-    shrinks only where shared memory forces it.  The launcher derives the
+    """K4 / K7's tile (or with rows, K5 / K6's, storing or reading the
+    (N2, N1) layout with transposed): log2 of its columns (TC) or rows
+    (TR).  A tile's row segments (K4, K7), or the words of a column it
+    moves together (K5 / K6 transposed), fill at least a sector (two on
+    short rows); K5 / K6 in the (N1, N2) layout move whole rows and start
+    from one.  The tile grows while its exchange buffer stays within
+    ROUND_TILE_BYTES and shrinks only where shared memory forces it.  The launcher derives the
     rest of the geometry from it: 16 words a thread in rounds of 4 stages
     (fewer on a shorter transform), two groups a thread."""
     size = word // 8
@@ -184,7 +153,7 @@ def inv_rows(a: torch.Tensor, plan: NttPlan, n1_log: int,
     if native.route(a) == "cpu":
         return sixstep.inv_rows(a, pick_ops(plan.q), tabs.w_inv, tabs.w_inv_con,
                                 plan.q, n1_log, input_transposed)
-    tr = tile_log(n1_log, n2_log, plan.word, rows=True)
+    tr = round_tile_log(n1_log, n2_log, plan.word, rows=True, transposed=input_transposed)
     return _launch("inv_rows", a, plan,
                    (tabs.w_inv.data_ptr(), tabs.w_inv_con.data_ptr(), plan.q),
                    (n1_log, n2_log, tr, int(input_transposed)))
@@ -199,7 +168,7 @@ def inv_cols(a: torch.Tensor, plan: NttPlan, n1_log: int) -> torch.Tensor:
     if native.route(a) == "cpu":
         return sixstep.inv_cols(a, pick_ops(plan.q), tabs.w_inv, tabs.w_inv_con, n_inv,
                                 n_inv_con, f_tmp, f_con, plan.q, n1_log)
-    tc = tile_log(n1_log, n2_log, plan.word, rows=False)
+    tc = round_tile_log(n1_log, n2_log, plan.word, rows=False)
     mask = (1 << plan.word) - 1
     return _launch("inv_cols", a, plan,
                    (tabs.w_inv.data_ptr(), tabs.w_inv_con.data_ptr(), plan.q, n_inv,

@@ -60,6 +60,37 @@ def test_negacyclic_mul_matches_jax_api(jp):
                                   jax_api.negacyclic_mul(a, b, jp, variant="pallas-fused"))
 
 
+@pytest.fixture(scope="module")
+def jax_product():
+    """One JAX product at m = 8, word 32 (its default, fused=True), shared by
+    the cases of test_negacyclic_mul_fused_keyword: the output is strict, so
+    the JAX package gives the same bits for every variant and keyword."""
+    jp = JFIXTURES[0]
+    a, b = rand(jp, (2, jp.n), 26), rand(jp, (2, jp.n), 27)
+    return jp, a, b, jax_api.negacyclic_mul(a, b, jp, fused=True)
+
+
+@pytest.mark.parametrize("variant,fused", [("auto", True), ("auto", False), ("sixstep", True),
+                                           ("sixstep", False), ("pallas-fused", True)])
+def test_negacyclic_mul_fused_keyword(jax_product, monkeypatch, variant, fused):
+    """The reference's signature, negacyclic_mul(a, b, p, variant, fused):
+    equal to the JAX product bit for bit; through 'sixstep' with fused the
+    forwards keep the transposed layout, and every other call composes the
+    variant's standard-order forwards (here 'auto' is pallas-fused)."""
+    jp, a, b, want = jax_product
+    kept = []
+    fwd_rows = twopass.fwd_rows
+
+    def spy(x, plan, n1_log, strict=True, keep_transposed=False):
+        kept.append(keep_transposed)
+        return fwd_rows(x, plan, n1_log, strict, keep_transposed)
+
+    monkeypatch.setattr(twopass, "fwd_rows", spy)
+    got = api.negacyclic_mul(a, b, from_fields(jp), variant, fused, device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert kept == ([fused, fused] if variant == "sixstep" else [])
+
+
 @pytest.mark.parametrize("jp", JAX_ONE_OF_EACH_WIDTH, ids=fixture_id)
 def test_pointwise_mul_matches_jax_api(jp):
     a, b = rand(jp, (2, jp.n), 22), rand(jp, (2, jp.n), 23)

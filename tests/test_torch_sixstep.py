@@ -7,8 +7,8 @@ inv_rows against the Pallas _inv_rows_kernel (A3) and inv_cols against the
 Pallas _inv_cols_kernel (A4), both in interpret mode.  Then the variants
 through the API, and the four reference fixtures beyond one block through
 'auto'.  Exact equality throughout, lazy representatives included.  Last,
-K4 / K5's tile (twopass.round_tile_log) at every split the API runs
-beyond one block, and chip_smoke's bounds of K4 / K5 there."""
+the tile of K4-K7 (twopass.round_tile_log) at every split the API runs
+beyond one block, and chip_smoke's bounds of K4-K7 there."""
 
 import functools
 
@@ -334,25 +334,34 @@ def test_fixture_beyond_one_block_through_auto(i):
     assert twopass.LAUNCHES == twopass_before  # the CPU route launches nothing
 
 
-# -- K4 / K5's tile on the card (twopass.round_tile_log) -------------------------
+# -- K4-K7's tile on the card (twopass.round_tile_log) ---------------------------
 
 # every (word, m) the two-pass form serves beyond one block: m >= 15 at word
 # 64, m >= 16 at word 32, up to the single-GPU limit N = 2^24
 TWO_PASS_SWEEP = [(word, m) for word in (64, 32) for m in range(fused.max_logn(word) + 1, 25)]
 
 
+# (rows, transposed) of the round_tile_log call with which each wrapper of
+# twopass launches its kernel, in each layout it reads or writes
+KERNEL_TILES = {"K4 fwd_cols": (False, False), "K5 fwd_rows": (True, False),
+                "K5 fwd_rows, kept transposed": (True, True), "K6 inv_rows": (True, False),
+                "K6 inv_rows, from the transposed layout": (True, True),
+                "K7 inv_cols": (False, False)}
+
+
 @pytest.mark.parametrize("word,m", TWO_PASS_SWEEP, ids=lambda v: str(v))
 def test_round_geometry_fits_and_covers_every_stage(word, m):
-    """K4 / K5's tile (twopass.round_tile_log) at the API's split, for K4 and
-    for K5 in both output layouts: the exchange buffer fits one block's
-    shared memory and holds every column / row padded by one word a bank
-    row; a column tile's row segments (and the words of a column that K5
-    stores together in the transposed layout) fill at least one 32-byte
-    sector, two on rows of 64 words or fewer; the tile spans at most the
-    other axis.  That the launcher's rounds cover every stage is held on
-    the card, bit for bit at every m (chip_smoke.py)."""
+    """K4-K7's tile (twopass.round_tile_log) at the API's split, for K4, K5
+    in both output layouts, K6 from both input layouts and K7: the exchange
+    buffer fits one block's shared memory and holds every column / row
+    padded by one word a bank row; a column tile's row segments (and the
+    words of a column that K5 stores, or K6 loads, together in the
+    transposed layout) fill at least one 32-byte sector, two on rows of 64
+    words or fewer; the tile spans at most the other axis.  That the
+    launcher's rounds cover every stage is held on the card, bit for bit
+    at every m (chip_smoke.py)."""
     n1 = sixstep.word_split(1 << m, word)
-    for rows, transposed in ((False, False), (True, False), (True, True)):
+    for rows, transposed in KERNEL_TILES.values():
         axis_log, other_log = (m - n1, n1) if rows else (n1, m - n1)
         lg = twopass.round_tile_log(n1, m - n1, word, rows, transposed)
         assert 0 <= lg <= other_log
@@ -368,7 +377,7 @@ def test_round_geometry_fits_and_covers_every_stage(word, m):
 
 @pytest.mark.parametrize("word", [64, 32])
 def test_chip_smoke_bounds_the_two_pass_sweep(word):
-    """chip_smoke times K4 / K5 at every m of the sweep, 2^24 words a call:
+    """chip_smoke times K4-K7 at every m of the sweep, 2^24 words a call:
     its kernel table finds each one's work, bound, source and TPU
     counterpart there."""
     import chip_smoke
@@ -378,7 +387,7 @@ def test_chip_smoke_bounds_the_two_pass_sweep(word):
     for m in ms:
         n1 = sixstep.word_split(1 << m, word)
         batch = chip_smoke.WORDS_PER_M >> m
-        for kernel in ("fwd_cols", "fwd_rows"):
+        for kernel in ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols"):
             nbytes, muls = chip_smoke.kernel_work(kernel, m, n1, batch, word)
             assert nbytes >= 2 * chip_smoke.WORDS_PER_M * word // 8 and muls > 0
             b_ms, b_by = chip_smoke.bound(nbytes, muls)
