@@ -36,8 +36,9 @@ Phases, each of which raises on failure (nothing is caught):
 7. K4-K7 at every m they serve in the API: at both widths and every m
    from 1 to 24 at the API's split (the 'sixstep' variant takes any m; its
    split gives N1 = 2 up to m = 8 and N2 = 1 at m = 1, so every
-   instantiation of 2, 4, 8 and 16 words a thread runs), batch 3, and at
-   m = 16 batch 300 (more than one wave of blocks), K4 on inputs below 4q,
+   instantiation of 2, 4, 8 and 16 words a thread runs), batch 3 (1 from
+   m = 21, where the plain versions take most of the time), and at m = 16
+   batch 300 (more than one wave of blocks), K4 on inputs below 4q,
    K5 strict and lazy in both output layouts, K6 from both input layouts
    (and equal between them), K7, and K7 with a final-stage constant one
    bit wider than the word equal to their plain versions, bit for bit;
@@ -47,17 +48,37 @@ Phases, each of which raises on failure (nothing is caught):
    the reference fixtures 15 to 18 through 'auto'; products equal to the
    plain path's and to the schoolbook product at sampled coefficients,
    round trips exact; K4 to K7 must have been launched at both widths;
-9. lab kernels vs plain: at N = 2^14, batch 32, n1_log 7 (and 4), both
+9. K8 and 'sixstep-rec' vs plain: at both widths and every m from 2 to
+   24, batch 3 (and K8 at m16 batch 128; the two-level transforms batch 1
+   from m = 21), K8 (twist_mul) with the forward
+   and the inverse twist on inputs below 4q equal to its plain version;
+   the two-level forward (K4 at the rec split, K8, K1), strict and lazy,
+   and its inverse (K2, K8, K7 with the level-1 constants) equal to the
+   plain compositions (``rec.plain_fwd`` / ``plain_inv``), the strict
+   forward equal to the flat 'sixstep', the round trip exact;
+10. the rec slice's main path: with every launch count set to 0,
+   ``fwd_ntt`` / ``inv_ntt`` through 'sixstep-rec' at m24 (word 64, 128 MB)
+   and m23 (word 32), batch 1, and through 'auto' at the first cell of
+   ``api.REC_CELLS`` (word 32, m17, batch 128), ``api.DeviceNtt.negacyclic``
+   at m14 q62 batch 1024 (strict and lazy handle) and a
+   ``rns.DeviceRnsTower`` of three 30-bit primes at m14 batch 1024, and the
+   tower's big-int product at batch 1; round trips exact, forwards equal
+   to the flat 'sixstep', the handles' products equal to
+   ``api.negacyclic_mul`` and to the schoolbook product at sampled
+   coefficients, the tower's equal to the host tower's and its big-int
+   product to the schoolbook one over Python ints; K1-K4, K7 and K8 must
+   have been launched at both widths;
+11. lab kernels vs plain: at N = 2^14, batch 32, n1_log 7 (and 4), both
    widths, inputs below 4q: L1 (fwd_fused_v2, two-stage and one-stage
    rounds, strict and lazy), L2 (fwd_fused_v3, strict, lazy, kept
    transposed) and the four L3 probes against their plain versions, bit
    for bit;
-10. the lab path: with every launch count set to 0,
+12. the lab path: with every launch count set to 0,
    ``python -m ntt_tpu_torch.lab --cases both --no-time`` (N = 2^14, batch
    512): every forward candidate equal to the plain six-step and to K1's
    output, K2 to the plain inverse, every probe to its plain version; K1
    and every L1 / L2 / L3 kernel must have been launched at both widths;
-11. times: warm-up, minimum over repetitions, kernel and plain version in
+13. times: warm-up, minimum over repetitions, kernel and plain version in
    turns, beside the card's name and power limit; each kernel's bound, the
    larger of its bytes over the memory rate and its integer multiplies
    over the multiply rate.  Every kernel is timed as the lab times it (a
@@ -67,7 +88,13 @@ Phases, each of which raises on failure (nothing is caught):
    max_logn(word), and K4-K7 at every m from 15 (word 64) / 16 (word 32)
    to 24, at 2^24 words a call, beside their bounds; K4-K7 at the sizes of
    phase 6, K5 and K6 also in the transposed layout that the product keeps
-   between them; the lab kernels and K1 at the lab's shape, the lab
+   between them; K8 at the round trips' shapes; 'sixstep-rec' against the
+   flat 'sixstep', forward and inverse, at every m from 16 to 24 at batch 1
+   and 8, at m16-m20 batch 128 and at m17 batch 32-512, both widths (one
+   API call's device time from a CUDA graph and its time in a stream of
+   back-to-back calls, flat, rec, rec, flat), and the cells where rec wins
+   both ways in both views beside ``api.REC_CELLS``; the handle's and the tower's
+   products; the lab kernels and K1 at the lab's shape, the lab
    kernels' plain versions at batch 32, and diag_copy's and diag_moves's
    one-call PyTorch equivalents (``clone``, ``flip``) as the lab kernels
    are timed.
@@ -100,12 +127,21 @@ TWO_PASS = (("m16-q62", 128), ("m16-q29", 128), ("m20-q62", 16), ("m20-q29", 16)
 FIXTURES_WITHIN = tuple(range(15))  # m 8-15: 'auto' is pallas-fused (K1 / K2)
 FIXTURES_BEYOND = (15, 16, 17, 18)
 BATCH_EVERY_M = 3  # K1 / K2 at every m: a small odd batch
+LARGE_M = 21  # from here the every-m sweeps of the plain six-step run batch 1
+
 BATCH_WAVES = 500  # and at m14 more polynomials than one wave of blocks
 WORDS_PER_M = 1 << 24  # K1 / K2 timed at m 10-14 (15), K4-K7 at m 15 (16)-24, at
 # this many words a call
 TWO_PASS_FIRST_M = {64: 15, 32: 16}  # K4-K7 timed at every m from the first beyond K1
 TWO_PASS_LAST_M = 24
 BATCH_TWO_PASS_WAVES = 300  # K4-K7 at m16: more polynomials than one wave of blocks
+REC_FIRST_M, REC_LAST_M = 2, 24  # K8 and 'sixstep-rec' held against plain at every m
+BATCH_REC_WAVES = 128  # K8 also at m16: more words than one wave of blocks
+REC_ROUND_TRIPS = ((64, 24), (32, 23))  # (word, m) of the rec path's round trips, batch 1
+REC_TIMED_M = range(16, 25)  # rec against flat at batch 1 and 8, and 128 up to m20
+REC_TIMED_BATCH128_LAST_M = 20
+REC_TIMED_M17_BATCHES = (1, 8, 32, 64, 128, 256, 512)  # where K4's tiles are slowest
+TOWER_BITS = (30, 30, 30)  # the three-prime RNS tower of BASELINE.json configs[2]
 CSRC = "ntt_tpu_torch/csrc/"
 LAB = "tools/pallas_lab.py:"
 LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
@@ -114,7 +150,7 @@ LAB_BATCH_CHECK = 32
 SOURCES = {"fwd_fused": CSRC + "ntt_fused.cu", "inv_fused": CSRC + "ntt_fused.cu",
            "mul_mod": CSRC + "pointwise.cu", "fwd_cols": CSRC + "ntt_sixstep.cu",
            "fwd_rows": CSRC + "ntt_sixstep.cu", "inv_rows": CSRC + "ntt_sixstep.cu",
-           "inv_cols": CSRC + "ntt_sixstep.cu",
+           "inv_cols": CSRC + "ntt_sixstep.cu", "twist_mul": CSRC + "twist.cu",
            **{k: CSRC + "ntt_lab.cu" for k in LAB_TRANSFORMS},
            **{k: CSRC + "probes.cu" for k in PROBES}}
 REPLACES = {"fwd_fused": "ntt_tpu/kernels/pallas_fused.py:230",
@@ -124,6 +160,7 @@ REPLACES = {"fwd_fused": "ntt_tpu/kernels/pallas_fused.py:230",
             "fwd_rows": "ntt_tpu/kernels/sixstep.py:294",
             "inv_rows": "ntt_tpu/kernels/pallas_fused.py:286",
             "inv_cols": "ntt_tpu/kernels/pallas_fused.py:307",
+            "twist_mul": "ntt_tpu/kernels/sixstep.py:465",
             "fwd_fused_v2_r2": LAB + "127", "fwd_fused_v2_r4": LAB + "127",
             "fwd_fused_v3": LAB + "326", "diag_copy": LAB + "444", "diag_mul": LAB + "402",
             "diag_math": LAB + "455", "diag_moves": LAB + "479"}
@@ -141,15 +178,25 @@ MUL_MOD_MULS = {32: 6, 64: 34}
 N_MULTS = 42  # the multiplies of diag_mul on each 32-bit half (probes.N_MULTS)
 
 
+def every_m_batch(m: int) -> int:
+    """The sweeps' batch at m: BATCH_EVERY_M, 1 from LARGE_M up (the plain
+    versions they are held against take most of the script's time there)."""
+    return 1 if m >= LARGE_M else BATCH_EVERY_M
+
+
 def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int):
     """(bytes, 32-bit multiplies) one launch must move and do: each input
     read once (the twiddle entries it uses included), each output written
     once.  The lab's transforms do K1's work; diag_math runs m rounds of
-    butterflies on N/2 pairs, as the lab calls it."""
+    butterflies on N/2 pairs, as the lab calls it; twist_mul (n1_log the
+    rec split) reads its four tables, (N1, HI) and (N1, LO) words, once
+    and does two Shoup products a word."""
     n, size = 1 << m, word // 8
     data = 2 * batch * n * size
     bfly = batch * n // 2 * SHOUP_MULS[word]  # one stage
     n1 = 1 << n1_log
+    twist_lo = 1 << (m - n1_log + 1) // 2
+    twist_hi = (n >> n1_log) // twist_lo
     fused = (data + 2 * n * size, bfly * m)
     return {
         "fwd_fused": fused,
@@ -164,6 +211,8 @@ def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int):
         "inv_cols": (data + 2 * n1 * size, bfly * (n1_log + 1)),
         "fwd_rows": (data + 2 * (n - n1) * size, bfly * (m - n1_log)),
         "inv_rows": (data + 2 * (n - n1) * size, bfly * (m - n1_log)),
+        "twist_mul": (data + 2 * n1 * (twist_hi + twist_lo) * size,
+                      2 * batch * n * SHOUP_MULS[word]),
     }[kernel]
 
 
@@ -274,9 +323,9 @@ def main() -> int:
         print(f"ntt_tpu_torch/ not found beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from ntt_tpu_torch import FIXTURES, NttParams, api, bench_params, lab, native
+    from ntt_tpu_torch import FIXTURES, NttParams, api, bench_params, lab, native, rns
     from ntt_tpu_torch import modmath as mm
-    from ntt_tpu_torch.kernels import fused, fused_lab, pointwise, probes, sixstep, twopass
+    from ntt_tpu_torch.kernels import fused, fused_lab, pointwise, probes, rec, sixstep, twopass
     from ntt_tpu_torch.kernels.elems import pick_ops
     from ntt_tpu_torch.plan import get_plan
 
@@ -302,6 +351,18 @@ def main() -> int:
     def rand(p, batch, hi=None):
         host = rng.integers(0, hi or p.q, size=(batch, p.n), dtype=np.uint64)
         return mm.from_host(host, p.q, dev)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(args.seed)
+
+    def rand_dev(p, batch, lazy=False):
+        """Values below q (with lazy, below 4q: plus 0-3 q, wrapping as the
+        unsigned words do), drawn on the card: no host copy of large inputs."""
+        shape, dtype = (batch, p.n), mm.dtype_for(p.q)
+        x = torch.randint(0, p.q, shape, generator=gen, device=dev, dtype=dtype)
+        if lazy:
+            x += torch.randint(0, 4, shape, generator=gen, device=dev, dtype=dtype) * mm.s64(p.q)
+        return x
 
     def check_ntt_rows(p, a, f, lazy, what):
         """Two rows of a forward output (strict f, lazy mod q) at sampled
@@ -568,14 +629,15 @@ def main() -> int:
         del a, k4, k5, k6, k6t, k7
         torch.cuda.empty_cache()
 
-    phase(f"K4-K7 vs plain at every m from 1 to {TWO_PASS_LAST_M} (batch {BATCH_EVERY_M}), "
+    phase(f"K4-K7 vs plain at every m from 1 to {TWO_PASS_LAST_M} (batch {BATCH_EVERY_M}, 1 "
+          f"from m{LARGE_M}), "
           f"and at m16 batch {BATCH_TWO_PASS_WAVES}")
     for word in (64, 32):
         done = []
         for m, p, n1 in two_pass_m(word, first=1):
             plan, ops = get_plan(p), pick_ops(p.q)
             tabs = plan.device_tables(dev)
-            for batch in (BATCH_EVERY_M, BATCH_TWO_PASS_WAVES) if m == 16 else (BATCH_EVERY_M,):
+            for batch in (BATCH_EVERY_M, BATCH_TWO_PASS_WAVES) if m == 16 else (every_m_batch(m),):
                 tag = f"w{word} m{m} b{batch} (n1_log {n1})"
                 a = rand(p, batch, hi=4 * p.q)
                 c = sixstep.fwd_cols(a, ops, tabs.w, tabs.w_con, p.q, n1)
@@ -646,6 +708,124 @@ def main() -> int:
         print(f"  {s}: round trip {tuple(a.shape)} exact", flush=True)
     check_fixtures(fx2, fwd2, back_fx)
     del prod2, back2, fwd2, back_fx, fx2
+
+    phase(f"K8 and sixstep-rec vs plain at every m from {REC_FIRST_M} to {REC_LAST_M} (K8 batch "
+          f"{BATCH_EVERY_M} and at m16 batch {BATCH_REC_WAVES}; sixstep-rec batch {BATCH_EVERY_M}, "
+          f"1 from m{LARGE_M})")
+    for word in (64, 32):
+        done = []
+        for m in range(REC_FIRST_M, REC_LAST_M + 1):
+            p = params_at(m, word)
+            plan, ops = get_plan(p), pick_ops(p.q)
+            l1 = sixstep.rec_split(m)
+            for batch in (BATCH_EVERY_M, BATCH_REC_WAVES) if m == 16 else (BATCH_EVERY_M,):
+                tag = f"w{word} m{m} b{batch} (n1_log {l1})"
+                lazy_in = rand_dev(p, batch, lazy=True)
+                for inverse in (False, True):
+                    tw = plan.device_tables(dev).twist(l1, inverse)
+                    note(f"twist_mul_u{word}", rec.twist_mul(lazy_in, plan, l1, inverse),
+                         sixstep.twist_mul(lazy_in, ops, tw, p.q),
+                         f"{tag} K8 {'inverse' if inverse else 'forward'} on input < 4q",
+                         quiet=True)
+                del lazy_in
+                done.append(f"m{m} b{batch}")
+            x = rand_dev(p, every_m_batch(m))
+            f = {}
+            for strict in (True, False):
+                f[strict] = api.fwd_ntt(x, p, "sixstep-rec", lazy=not strict)
+                note("sixstep-rec", f[strict], rec.plain_fwd(x, plan, strict),
+                     f"w{word} m{m} sixstep-rec {'strict' if strict else 'lazy'}", quiet=True)
+            if not torch.equal(f[True], api.fwd_ntt(x, p, "sixstep")):
+                raise AssertionError(f"w{word} m{m}: sixstep-rec differs from the flat sixstep")
+            back = api.inv_ntt(f[True], p, "sixstep-rec")
+            note("sixstep-rec", back, rec.plain_inv(f[True], plan),
+                 f"w{word} m{m} sixstep-rec inverse", quiet=True)
+            if not torch.equal(back, x):
+                raise AssertionError(f"w{word} m{m}: sixstep-rec round trip differs")
+            del x, f, back
+        torch.cuda.empty_cache()
+        print(f"  w{word}: K8 (both twists, input < 4q) equal to plain at {', '.join(done)}; "
+              f"sixstep-rec (strict, lazy, inverse; K4 / K7 at the rec split) equal to plain, "
+              f"strict equal to the flat sixstep, round trip exact at every m from "
+              f"{REC_FIRST_M} to {REC_LAST_M}", flush=True)
+
+    phase("main path of the rec slice: fwd_ntt / inv_ntt through 'sixstep-rec' at "
+          + ", ".join(f"w{w} m{m}" for w, m in REC_ROUND_TRIPS)
+          + " batch 1 and through 'auto' at the first cell of api.REC_CELLS"
+          + f", DeviceNtt.negacyclic q62 m14 batch {BATCH_HE}, DeviceRnsTower "
+          f"{TOWER_BITS} m14 batch {BATCH_HE} and its big-int product at batch 1")
+    rt3 = {(w, m): (params_at(m, w), rand(params_at(m, w), 1)) for w, m in REC_ROUND_TRIPS}
+    (auto_w, auto_m), (auto_rows, _) = next(iter(api.REC_CELLS.items()))
+    auto_p = params_at(auto_m, auto_w)
+    auto_x = rand_dev(auto_p, auto_rows)
+    p14 = params["q62"]
+    ctx = api.DeviceNtt(p14, device=dev)
+    hx = rng.integers(0, p14.q, size=(2, BATCH_HE, p14.n), dtype=np.uint64)
+    hx_dev = (ctx.from_host(hx[0]), ctx.from_host(hx[1]))
+    tower = rns.DeviceRnsTower(14, TOWER_BITS, device=dev)
+    big_q = tower.modulus_product
+    tx = [tower.encode(rng.integers(0, 1 << 62, size=(BATCH_HE, tower.n), dtype=np.uint64))
+          for _ in range(2)]
+    big = [np.array([int(v) % big_q for v in rng.integers(0, 1 << 40, size=tower.n,
+                                                          dtype=np.uint64)], dtype=object)
+           for _ in range(2)]
+    tx_dev = (tower.from_host(tx[0]), tower.from_host(tx[1]))
+    torch.cuda.synchronize()
+    rec_counts = (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES, rec.LAUNCHES)
+    for counts in rec_counts:
+        for k in counts:
+            counts[k] = 0
+    fwd3 = {k: api.fwd_ntt(x, p, "sixstep-rec") for k, (p, x) in rt3.items()}
+    back3 = {k: api.inv_ntt(fwd3[k], rt3[k][0], "sixstep-rec") for k in rt3}
+    fwd_auto = api.fwd_ntt(auto_x, auto_p)
+    back_auto = api.inv_ntt(fwd_auto, auto_p)
+    hprod = ctx.negacyclic(*hx_dev)
+    hprod_lazy = api.DeviceNtt(p14, lazy=True, device=dev).negacyclic(*hx_dev)
+    tprod = tower.negacyclic(*tx_dev)
+    tbig = tower.negacyclic_mul_bigint(*big)
+    torch.cuda.synchronize()
+    launches4 = {k: v for c in rec_counts for k, v in c.items()}
+    print(f"  launch counts of this path: {launches4}", flush=True)
+    needed = [f"{k}_u{w}" for k in ("twist_mul", "fwd_cols", "inv_cols", "fwd_fused",
+                                    "inv_fused", "mul_mod") for w in (64, 32)]
+    idle = [k for k in needed if launches4[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched by the rec slice's path: {idle}")
+    for (w, m), (p, x) in rt3.items():
+        if not torch.equal(back3[w, m], x):
+            raise AssertionError(f"w{w} m{m}: inv_rec(fwd_rec(a)) != a")
+        if not torch.equal(fwd3[w, m], api.fwd_ntt(x, p, "sixstep")):
+            raise AssertionError(f"w{w} m{m}: sixstep-rec differs from the flat sixstep")
+        print(f"  w{w} m{m} q {p.q:#x}: fwd_ntt through sixstep-rec equals the flat sixstep, "
+              "inv_ntt(fwd_ntt(a)) == a", flush=True)
+    auto_v = api._pick(get_plan(auto_p), "auto", rows=auto_rows).name
+    if auto_v != "sixstep-rec" or not torch.equal(back_auto, auto_x) or not torch.equal(
+            fwd_auto, api.fwd_ntt(auto_x, auto_p, "sixstep")):
+        raise AssertionError(f"w{auto_w} m{auto_m} batch {auto_rows} through 'auto' ({auto_v}): "
+                             "forward differs from the flat sixstep or the round trip fails")
+    print(f"  w{auto_w} m{auto_m} batch {auto_rows} through 'auto' (a cell of api.REC_CELLS, "
+          f"{auto_v}): forward equals the flat sixstep, round trip exact", flush=True)
+    if not torch.equal(hprod, api.negacyclic_mul(*hx_dev, p14)):
+        raise AssertionError("DeviceNtt.negacyclic differs from api.negacyclic_mul")
+    if not torch.equal(hprod_lazy, hprod):
+        raise AssertionError("the lazy handle's product (K3 on lazy forwards) differs")
+    ks = check_product_rows(p14, *hx_dev, hprod, "DeviceNtt q62 m14")
+    print(f"  DeviceNtt q62 m14: negacyclic {tuple(hprod.shape)} (and the lazy handle's) equals "
+          f"api.negacyclic_mul and, at coefficients {ks} of two rows, the schoolbook product",
+          flush=True)
+    host_tower = rns.RnsTower(14, params=tower.params, device=dev)
+    if not np.array_equal(tower.to_host(tprod), host_tower.negacyclic_mul(*tx)):
+        raise AssertionError("DeviceRnsTower.negacyclic differs from the host tower")
+    tks = sorted({0, 1, tower.n - 1, *rng.integers(0, tower.n, 3).tolist()})
+    ring = argparse.Namespace(n=tower.n, q=big_q)
+    for k in tks:
+        if int(tbig[k]) != schoolbook_at(*big, k, ring):
+            raise AssertionError(f"tower big-int product coeff {k} differs from the schoolbook")
+    print(f"  DeviceRnsTower {[hex(q) for q in tower.moduli]} m14: negacyclic {len(tprod)} x "
+          f"{tuple(tprod[0].shape)} equals the host tower; the big-int product "
+          f"({big_q.bit_length()}-bit Q) equals the schoolbook at coefficients {tks}", flush=True)
+    del fwd3, back3, rt3, tprod, hprod, hprod_lazy, fwd_auto, back_auto, auto_x
+
 
     lab_cases = ("u32", "u64")
     lab_params = {c: lab.case_params(c, 14) for c in lab_cases}
@@ -868,6 +1048,118 @@ def main() -> int:
                   f"sum of the seven launches' bounds {b_ms * 1e3:.1f} us", flush=True)
         del a, c, f, r, ft
         torch.cuda.empty_cache()
+
+    # K8 at the rec path's round-trip shapes from a CUDA graph, beside its
+    # bound; its plain version between CUDA events
+    for w, m in REC_ROUND_TRIPS:
+        p = params_at(m, w)
+        plan, ops, l1 = get_plan(p), pick_ops(p.q), sixstep.rec_split(m)
+        x = rand_dev(p, 1, lazy=True)
+        tw = plan.device_tables(dev).twist(l1, False)
+        k_ms, p_ms = kernel_in_turns(torch, lab, lambda: rec.twist_mul(x, plan, l1),
+                                     lambda: sixstep.twist_mul(x, ops, tw, p.q), 2)
+        entry(f"twist_mul_u{w}", launches4[f"twist_mul_u{w}"], k_ms, p_ms, m, l1, 1, w,
+              f"m{m} batch 1", record=True)
+        del x
+
+    # 'sixstep-rec' against the flat 'sixstep', forward and inverse, one API
+    # call two ways: its device time from a CUDA graph, and its time in a
+    # stream of back-to-back calls between two CUDA events, which includes
+    # the host's launches (a server's view); each in turns flat, rec, rec,
+    # flat, the spread the larger of the two forms' differences between
+    # passes.  Inputs are drawn on the card (seeded), as timing needs no
+    # host copy of them.
+    def stream_us(fn, x, calls=20):
+        for _ in range(2):
+            fn(x)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(calls):
+            fn(x)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3 / calls
+
+    def graph_us(graph, inner=5, reps=2):
+        """Device time of one call from replays of a graph of `inner` calls."""
+        best = float("inf")
+        for _ in range(reps):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) * 1e3 / inner)
+        return best
+
+    def captured(fn, x, inner=5):
+        """A CUDA graph of `inner` calls, after two warm-up calls."""
+        for _ in range(2):
+            fn(x)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(inner):
+                fn(x)
+        graph.replay()
+        return graph
+
+    def rec_against_flat(p, x, inverse):
+        call = api.inv_ntt if inverse else api.fwd_ntt
+        fns = {v: (lambda t, v=v: call(t, p, v)) for v in ("sixstep", "sixstep-rec")}
+        graphs = {v: captured(fn, x) for v, fn in fns.items()}
+        out = {}
+        for how, timer in (("graph", lambda v: graph_us(graphs[v])),
+                           ("stream", lambda v: stream_us(fns[v], x))):
+            flat1, rec1 = timer("sixstep"), timer("sixstep-rec")
+            rec2, flat2 = timer("sixstep-rec"), timer("sixstep")
+            spread = max(abs(rec1 - rec2), abs(flat1 - flat2))
+            out[how] = {"rec_us": min(rec1, rec2), "flat_us": min(flat1, flat2),
+                        "spread_us": spread,
+                        "rec_wins": min(flat1, flat2) - min(rec1, rec2) > spread}
+        del graphs
+        return out
+
+    rec_rows = []
+    for w in (64, 32):
+        for m in REC_TIMED_M:
+            p = params_at(m, w)
+            batches = (1, 8, 128) if m <= REC_TIMED_BATCH128_LAST_M else (1, 8)
+            for batch in REC_TIMED_M17_BATCHES if m == 17 else batches:
+                x = rand_dev(p, batch)
+                f = api.fwd_ntt(x, p, "sixstep")
+                row = {"word": w, "m": m, "batch": batch}
+                for d, arg in (("fwd", x), ("inv", f)):
+                    row[d] = rec_against_flat(p, arg, d == "inv")
+                rec_rows.append(row)
+                print(f"  w{w} m{m} batch {batch}: " + "; ".join(
+                    f"{d} {how} rec {t['rec_us']:.1f} / flat {t['flat_us']:.1f} us "
+                    f"(spread {t['spread_us']:.1f}{', rec faster' if t['rec_wins'] else ''})"
+                    for d in ("fwd", "inv") for how, t in row[d].items()), flush=True)
+                del x, f
+            torch.cuda.empty_cache()
+    print(f"  rec against flat: {json.dumps(rec_rows)}", flush=True)
+    wins = [(r["word"], r["m"], r["batch"]) for r in rec_rows
+            if all(r[d][how]["rec_wins"] for d in ("fwd", "inv") for how in ("graph", "stream"))]
+    print(f"  (word, m, batch) where sixstep-rec is faster both ways, in both views: {wins}; "
+          f"api.REC_CELLS {api.REC_CELLS}", flush=True)
+
+    # the serving handle's and the tower's products at batch 1024
+    k_ms, a_ms = in_turns(torch, lambda: ctx.negacyclic(*hx_dev),
+                          lambda: api.negacyclic_mul(*hx_dev, p14), 5, 5)
+    g_ms = lab.cuda_us(lambda _: ctx.negacyclic(*hx_dev), None, 3, 5) / 1e3
+    print(f"  DeviceNtt q62 m14 negacyclic batch {BATCH_HE}: {k_ms * 1e3:.1f} us between events "
+          f"({BATCH_HE / k_ms * 1e3:,.0f} products/s), {g_ms * 1e3:.1f} us from a CUDA graph; "
+          f"api.negacyclic_mul {a_ms * 1e3:.1f} us", flush=True)
+    t_ms = cuda_ms(torch, lambda: tower.negacyclic(*tx_dev), 5)
+    tg_ms = lab.cuda_us(lambda _: tower.negacyclic(*tx_dev), None, 3, 5) / 1e3
+    print(f"  DeviceRnsTower {len(TOWER_BITS)} x 30-bit m14 negacyclic batch {BATCH_HE}: "
+          f"{t_ms * 1e3:.1f} us between events ({BATCH_HE / t_ms * 1e3:,.0f} ciphertext "
+          f"products/s), {tg_ms * 1e3:.1f} us from a CUDA graph", flush=True)
+    del hx_dev, tx_dev
+    torch.cuda.empty_cache()
+
 
     # the lab's kernels at the lab's shape, timed as the lab times them (a
     # CUDA graph of launches); their plain versions at batch 32; the one

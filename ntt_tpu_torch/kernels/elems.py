@@ -49,6 +49,11 @@ class U32Ops:
         return mm.reduce32(x, q, 4)
 
     @staticmethod
+    def shoup_mul(w, wc, x, q: int):
+        """Constant w (Shoup constant wc) times x < 4q; output < 2q."""
+        return mm.shoup_mul32_q2(w, wc, x, q)
+
+    @staticmethod
     def mul_mod(x, y, q: int):
         return mm.mul_mod_q32(x, y, q)
 
@@ -86,6 +91,10 @@ class U64Ops:
     @staticmethod
     def reduce_4q_to_q(x, q: int):
         return mm.reduce_4q_to_q(x, q)
+
+    @staticmethod
+    def shoup_mul(w, wc, x, q: int):
+        return mm.shoup_mul_q2(w, wc, x, q)
 
     @staticmethod
     def mul_mod(x, y, q: int):

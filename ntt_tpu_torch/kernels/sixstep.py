@@ -3,8 +3,9 @@ kernels in ``csrc/ntt_fused.cu`` (K1, K2) and ``csrc/ntt_sixstep.cu``
 (K4 to K7).
 
 The counterpart of ``ntt_tpu/kernels/sixstep.py`` (``fwd_sixstep`` /
-``inv_sixstep``, their four phases, ``default_split`` and
-``fix_transposed_order``).  With N = N1*N2 and the coefficients viewed
+``inv_sixstep``, their four phases, ``default_split``,
+``fix_transposed_order``, and the two-level six-step's ``rec_split`` and
+``_twist_mul``, the plain version of K8 in ``csrc/twist.cu``).  With N = N1*N2 and the coefficients viewed
 (N1, N2), the first log2 N1 Harvey stages are column NTTs that read the
 global table's prefix w[1:N1]; every later stage s' reads the slice
 w[2^s'*N1 : 2^(s'+1)*N1] viewed (N1, 2^s') and transposed as per-row
@@ -214,6 +215,24 @@ def inv_sixstep(a, ops, w, wc, n_inv_op: int, n_inv_con: int, final_tmp: int,
     a = inv_rows(a, ops, w, wc, q, n1_log, input_transposed)
     return inv_cols(a, ops, w, wc, n_inv_op, n_inv_con, final_tmp, final_con, q,
                     n1_log)
+
+
+def rec_split(logn: int) -> int:
+    """log2 N1 of the two-level six-step: balanced, logn // 2."""
+    return logn // 2
+
+
+def twist_mul(a, ops, tw, q: int):
+    """The two-level six-step's twist (JAX ``sixstep._twist_mul``): a (..., N)
+    rep in the (N1, N2) layout times T[c, h LO + l] = A[c, h] B[c, l], as two
+    chained Shoup products, first by A, then by B; tw = (A, Ac, B, Bc) of
+    shapes (N1, HI) and (N1, LO).  Inputs < 4q, output < 2q."""
+    tw_a, tw_ac, tw_b, tw_bc = tw
+    (n1, hi), lo = tw_a.shape, tw_b.shape[-1]
+    v = a.reshape(a.shape[:-1] + (n1, hi, lo))
+    v = ops.shoup_mul(tw_a[:, :, None], tw_ac[:, :, None], v, q)
+    v = ops.shoup_mul(tw_b[:, None, :], tw_bc[:, None, :], v, q)
+    return v.reshape(a.shape)
 
 
 def fix_transposed_order(a, n1_log: int):

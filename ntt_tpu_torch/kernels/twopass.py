@@ -118,11 +118,26 @@ def _launch(kernel: str, a: torch.Tensor, plan: NttPlan, before: tuple,
     return out
 
 
-def fwd_cols(a: torch.Tensor, plan: NttPlan, n1_log: int) -> torch.Tensor:
+def _col_plan(plan: NttPlan, n1_log: int, col_plan: NttPlan | None) -> NttPlan:
+    """The plan whose tables (and, inverse, n^-1 constants) the column
+    stages read: ``plan`` itself, or a plan of N1 = 2^n1_log words at the
+    same q, whose tables are ``plan``'s first N1 entries (the two-level
+    six-step's level-1 plan, whose constants scale by 1/N1)."""
+    if col_plan is None:
+        return plan
+    if col_plan.q != plan.q or col_plan.m != n1_log:
+        raise ValueError(f"column plan (q={col_plan.q:#x}, m={col_plan.m}) does not match "
+                         f"q={plan.q:#x}, n1_log={n1_log}")
+    return col_plan
+
+
+def fwd_cols(a: torch.Tensor, plan: NttPlan, n1_log: int,
+             col_plan: NttPlan | None = None) -> torch.Tensor:
     """K4: forward column stages of (..., N) in the (N1, N2) layout; lazy
-    output (< 4q) in the same layout."""
+    output (< 4q) in the same layout.  With ``col_plan`` the stages read
+    its tables (see ``_col_plan``): the same twiddles."""
     n1_log, n2_log = _logs(plan, n1_log)
-    tabs = plan.device_tables(a.device)
+    tabs = _col_plan(plan, n1_log, col_plan).device_tables(a.device)
     if native.route(a) == "cpu":
         return sixstep.fwd_cols(a, pick_ops(plan.q), tabs.w, tabs.w_con, plan.q, n1_log)
     tc = round_tile_log(n1_log, n2_log, plan.word, rows=False)
@@ -159,12 +174,16 @@ def inv_rows(a: torch.Tensor, plan: NttPlan, n1_log: int,
                    (n1_log, n2_log, tr, int(input_transposed)))
 
 
-def inv_cols(a: torch.Tensor, plan: NttPlan, n1_log: int) -> torch.Tensor:
+def inv_cols(a: torch.Tensor, plan: NttPlan, n1_log: int,
+             col_plan: NttPlan | None = None) -> torch.Tensor:
     """K7: inverse column stages and the fused n^-1 stage of inv_rows'
-    output; strict output in the standard order."""
+    output; strict output in the standard order.  With ``col_plan`` the
+    stages read its tables and n^-1 constants (``_col_plan``): the
+    two-level six-step's level-1 inverse scales by 1/N1."""
     n1_log, n2_log = _logs(plan, n1_log)
-    tabs = plan.device_tables(a.device)
-    n_inv, n_inv_con, f_tmp, f_con = plan.inv_consts
+    cols = _col_plan(plan, n1_log, col_plan)
+    tabs = cols.device_tables(a.device)
+    n_inv, n_inv_con, f_tmp, f_con = cols.inv_consts
     if native.route(a) == "cpu":
         return sixstep.inv_cols(a, pick_ops(plan.q), tabs.w_inv, tabs.w_inv_con, n_inv,
                                 n_inv_con, f_tmp, f_con, plan.q, n1_log)

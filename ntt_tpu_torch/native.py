@@ -44,6 +44,7 @@ _INV_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P]
 _INV_COLS = [_P, _P, _P, _P, _U64, _U64, _U64, _U64, _U64, _I, _I, _I, _I, _I, _P]
 _FWD_V2 = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _P]
 _FWD_V3 = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P]
+_TWIST = [_P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _P]
 _DIAG = [_P, _P, _I, _I, _P]
 _DIAG_MUL = [_P, _P, _U64, _I, _I, _I, _P]
 _DIAG_MATH = [_P, _P, _P, _P, _U64, _I, _I, _I, _P]
@@ -57,6 +58,7 @@ SIGNATURES = {
     **{f"ntt_{k}_u{w}": sig for w in (32, 64)
        for k, sig in (("fwd_cols", _FWD_COLS), ("fwd_rows", _FWD_ROWS),
                       ("inv_rows", _INV_ROWS), ("inv_cols", _INV_COLS),
+                      ("twist_mul", _TWIST),
                       ("fwd_fused_v2", _FWD_V2), ("fwd_fused_v3", _FWD_V3),
                       ("diag_copy", _DIAG), ("diag_mul", _DIAG_MUL),
                       ("diag_math", _DIAG_MATH), ("diag_moves", _DIAG))},

@@ -3,7 +3,8 @@
 The port's own copy of what it uses from ``ntt_tpu/params.py``: the
 frozen ``NttParams`` (q, m, w, w_inv, n_inv) with the same field names,
 the 19 reference fixtures, the deterministic prime and root generators
-behind ``NttParams.generate`` and ``bench_params``, and ``from_fields``,
+behind ``NttParams.generate``, ``bench_params`` and the RNS towers
+(``find_ntt_primes``), and ``from_fields``,
 the one way in for a parameter object of another package.  Host-side
 Python with exact big-int arithmetic; nothing here runs on a device.
 """
@@ -46,16 +47,24 @@ def is_probable_prime(n: int) -> bool:
 def find_ntt_prime(bits: int, m: int, skip: int = 0) -> int:
     """Largest prime q < 2^bits with 2^(m+1) | q - 1 (so a 2N-th root
     exists); with skip > 0, the (skip+1)-th largest such prime."""
+    return find_ntt_primes(bits, m, skip + 1)[skip]
+
+
+def find_ntt_primes(bits: int, m: int, count: int) -> list[int]:
+    """The ``count`` largest primes q < 2^bits with 2^(m+1) | q - 1, in
+    descending order, from one scan (``ntt_tpu.params.find_ntt_primes``:
+    the RNS towers take their moduli from it)."""
     two_n = 1 << (m + 1)
     k = ((1 << bits) - 1) // two_n
-    while k > 0:
+    out: list[int] = []
+    while k > 0 and len(out) < count:
         q = k * two_n + 1
         if q < (1 << bits) and is_probable_prime(q):
-            if skip == 0:
-                return q
-            skip -= 1
+            out.append(q)
         k -= 1
-    raise ValueError(f"no NTT prime with bits={bits}, m={m}")
+    if len(out) < count:
+        raise ValueError(f"only {len(out)} NTT primes with bits={bits}, m={m}")
+    return out
 
 
 def primitive_2n_root(q: int, m: int) -> int:

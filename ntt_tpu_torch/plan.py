@@ -5,9 +5,11 @@ The counterpart of ``ntt_tpu/plan.py``, cut to the tables the fused
 transform reads: the bit-reversed root powers ``w`` / ``w_inv`` with
 their Shoup constants at word 64 (``w_con``, ``w_inv_con``) and word 32
 (``w_con32``, ``w_inv_con32``), the n^-1 constants, and the fused final
-stage's ``(f_tmp, f_con)`` (``ntt_tpu.kernels.radix2._final_mulop``).
-Host tables are numpy uint64 built by the port's ``twiddles``; device
-tables are int32 or int64 tensors of the plan's width, cached per device.
+stage's ``(f_tmp, f_con)`` (``ntt_tpu.kernels.radix2._final_mulop``),
+and for the two-level six-step its level plans and factored twist tables
+(``ntt_tpu.api._rec_level_plans`` / ``_rec_twist_reps``).  Host tables
+are numpy uint64 built by the port's ``twiddles``; device tables are
+int32 or int64 tensors of the plan's width, cached per device.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ class DeviceTables:
 
     def __init__(self, plan: "NttPlan", device: torch.device):
         self._plan, self._device = plan, device
+        self._twist: dict[tuple[int, bool], tuple[torch.Tensor, ...]] = {}
 
     def _load(self, name: str) -> torch.Tensor:
         host = name + "32" if self._plan.word == 32 and name.endswith("_con") else name
@@ -64,6 +67,15 @@ class DeviceTables:
     def w_inv_con(self) -> torch.Tensor:
         return self._load("w_inv_con")
 
+    def twist(self, l1_log: int, inverse: bool) -> tuple[torch.Tensor, ...]:
+        """(A, Ac, B, Bc) of ``NttPlan.twist_tables`` on this device."""
+        key = (l1_log, inverse)
+        if key not in self._twist:
+            q = self._plan.q
+            self._twist[key] = tuple(mm.from_host(t, q, self._device)
+                                     for t in self._plan.twist_tables(l1_log, inverse))
+        return self._twist[key]
+
 
 class NttPlan:
     """All tables of one (q, m) instance."""
@@ -76,6 +88,7 @@ class NttPlan:
         self.word = 32 if mm.uses_u32(self.q) else 64
         self.dtype = mm.dtype_for(self.q)
         self._dev: dict[torch.device, DeviceTables] = {}
+        self._twist: dict[tuple[int, bool], tuple[np.ndarray, ...]] = {}
 
     @classmethod
     def from_numpy(cls, params: NttParams, tables: dict) -> "NttPlan":
@@ -141,6 +154,28 @@ class NttPlan:
         f_tmp, f_con = final_mulop(n_inv, n_inv_con, int(self.w_inv[1]), self.q,
                                    self.word)
         return n_inv, n_inv_con, f_tmp, f_con
+
+    def rec_plans(self, l1_log: int) -> tuple["NttPlan", "NttPlan"]:
+        """The level plans of the two-level six-step at N1 = 2^l1_log: size
+        N1 with root w^N2 and size N2 with root w^N1.  Their tables are the
+        global tables' prefixes; their n^-1 constants scale by 1/N1 and
+        1/N2."""
+        p = self.params
+        n1, n2 = 1 << l1_log, 1 << (p.m - l1_log)
+        return (get_plan(NttParams.make(p.q, l1_log, w=pow(p.w, n2, p.q))),
+                get_plan(NttParams.make(p.q, p.m - l1_log, w=pow(p.w, n1, p.q))))
+
+    def twist_tables(self, l1_log: int, inverse: bool) -> tuple[np.ndarray, ...]:
+        """(A, Ac, B, Bc): ``twiddles.twist_tables_rec`` of w (or w_inv with
+        inverse) at N1 = 2^l1_log, shapes (N1, HI) and (N1, LO), with their
+        Shoup constants at the plan's word."""
+        key = (l1_log, inverse)
+        if key not in self._twist:
+            psi = self.params.w_inv if inverse else self.params.w
+            a, b = tw.twist_tables_rec(psi, self.q, self.n, l1_log)
+            self._twist[key] = (a, tw.calc_w_con(a, self.q, self.word),
+                                b, tw.calc_w_con(b, self.q, self.word))
+        return self._twist[key]
 
     def device_tables(self, device) -> DeviceTables:
         """w, w_con, w_inv, w_inv_con at the plan's width on ``device``."""

@@ -2,7 +2,8 @@
 
 The port's own copy of the tables it reads from ``ntt_tpu/twiddles.py``:
 the bit-reversed powers of the root and of its inverse, their Shoup
-constants at a given word size, and the Shoup constant of n^-1.  The
+constants at a given word size, the Shoup constant of n^-1, and the
+factored twist tables of the two-level six-step.  The
 values are those of the JAX package's builders, computed exactly in
 vectorised uint64 arithmetic (the powers as a (sqrt N x sqrt N) grid of
 Shoup products, the Shoup constants in two 32-bit quotient digits), so a
@@ -100,3 +101,38 @@ def calc_w_con(w_tab: np.ndarray, q: int, word_size: int = 64) -> np.ndarray:
 def calc_ninv_con(n_inv: int, q: int, word_size: int = 64) -> int:
     """The Shoup constant of n^-1."""
     return (n_inv << word_size) // q
+
+
+def _power_rows(bases: np.ndarray, count: int, q: int) -> np.ndarray:
+    """(len(bases), count) table of bases[c]^j mod q, j < count: column j is
+    the Shoup product of column j - 1 by bases[c] (bases < q < 2^62)."""
+    qu = np.uint64(q)
+    cons = calc_w_con(bases, q, 64)
+    out = np.empty((bases.size, count), dtype=np.uint64)
+    cur = np.ones(bases.size, dtype=np.uint64)
+    for j in range(count):
+        out[:, j] = cur
+        r = bases * cur - _mulhi64(cons, cur) * qu  # in [0, 2q)
+        cur = np.where(r >= qu, r - qu, r)
+    return out
+
+
+def twist_tables_rec(psi: int, q: int, n: int, l1_log: int):
+    """Factored twist tables of the two-level six-step
+    (``ntt_tpu.twiddles.twist_tables_rec``): with N = N1 * N2 viewed
+    (N1, N2), row c of the level-1 output is twisted by gamma_c^n2 before
+    the size-N2 transform of the rows, gamma_c = psi^((2 rev(c) + 1 - N1)
+    mod 2N), rev over l1_log bits.  Returns uint64 A of shape (N1, HI) and B
+    of shape (N1, LO), LO = 2^ceil(l2 / 2), HI * LO = N2, with
+    A[c, h] * B[c, l] = gamma_c^(h LO + l).  Pass psi = w for the forward
+    twist and psi = w_inv for the inverse.  Vectorised: one pow a row, then
+    LO + HI Shoup products over all rows at once."""
+    logn = n.bit_length() - 1
+    n1, l2 = 1 << l1_log, logn - l1_log
+    lo_log = (l2 + 1) // 2
+    lo, hi = 1 << lo_log, 1 << (l2 - lo_log)
+    # signed numpy %: the exponent is negative before the reduction mod 2N
+    exps = (2 * bit_rev_perm(n1) + 1 - n1) % (2 * n)
+    gamma = np.array([pow(psi, int(e), q) for e in exps], dtype=np.uint64)
+    gamma_lo = np.array([pow(psi, int(e) * lo % (2 * n), q) for e in exps], dtype=np.uint64)
+    return _power_rows(gamma_lo, hi, q), _power_rows(gamma, lo, q)

@@ -45,7 +45,7 @@ def zero_launch_counts():
 
 
 def test_variant_registry():
-    assert set(api.variants()) == {"pallas-fused", "sixstep", "sixstep-unordered"}
+    assert set(api.variants()) == {"pallas-fused", "sixstep", "sixstep-unordered", "sixstep-rec"}
     assert all(v.inv is not None for v in api.variants().values())
     with pytest.raises(KeyError, match="unknown NTT variant"):
         api.get_variant("radix2")
