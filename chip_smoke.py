@@ -78,7 +78,22 @@ Phases, each of which raises on failure (nothing is caught):
    512): every forward candidate equal to the plain six-step and to K1's
    output, K2 to the plain inverse, every probe to its plain version; K1
    and every L1 / L2 / L3 kernel must have been launched at both widths;
-13. times: warm-up, minimum over repetitions, kernel and plain version in
+13. reference-family variants vs plain: every variant of FAMILY at the
+   widths it takes (word 64, and the int32 rep where a word-64 variant
+   computes on an int64 copy), at every m from its least (hexl 3, r2-16
+   4, the vector forms 8) to 16, batch 3, and at m20 batch 2 and m24
+   batch 1 at word 64: the strict and lazy forward and the inverse
+   through the API (K9 / K10; K1 / K2 / K4-K7 for radix4x4) equal to the
+   variant's plain versions run on the same CUDA tensors, the lazy output
+   below its bound, the strict one equal to 'sixstep''s after
+   output_layout's fix, the round trip exact; every (entry point, stage
+   mode, twiddle view) of K9 / K10 run; each entry point on one stage at
+   m14 batch 1024 equal to its plain version;
+14. the variant slice's main path: with every launch count set to 0, the
+   HE product of each variant at m14 batch 1024 at its widest q
+   (FAMILY_HE) equal to 'auto''s; all five K9 / K10 entry points and K1 /
+   K2 (radix4x4) must have been launched;
+15. times: warm-up, minimum over repetitions, kernel and plain version in
    turns, beside the card's name and power limit; each kernel's bound, the
    larger of its bytes over the memory rate and its integer multiplies
    over the multiply rate.  Every kernel is timed as the lab times it (a
@@ -97,7 +112,11 @@ Phases, each of which raises on failure (nothing is caught):
    products; the lab kernels and K1 at the lab's shape, the lab
    kernels' plain versions at batch 32, and diag_copy's and diag_moves's
    one-call PyTorch equivalents (``clone``, ``flip``) as the lab kernels
-   are timed.
+   are timed; each reference-family variant's forward and product at m14
+   batch 1024 beside K1's and 'auto''s (CUDA graph), K9 / K10 a stage
+   beside their bounds (plain versions at batch 32), and 'radix2' /
+   'radix4-u32' against 'pallas-fused' at m6-m8, batch 128 and 1024, in a
+   graph and in a stream of 20 calls.
 
 Every phase line is followed by the wall clock the phase took, and the
 times phase ends with the wall clock of every phase.
@@ -142,6 +161,25 @@ REC_TIMED_M = range(16, 25)  # rec against flat at batch 1 and 8, and 128 up to 
 REC_TIMED_BATCH128_LAST_M = 20
 REC_TIMED_M17_BATCHES = (1, 8, 32, 64, 128, 256, 512)  # where K4's tiles are slowest
 TOWER_BITS = (30, 30, 30)  # the three-prime RNS tower of BASELINE.json configs[2]
+# The reference-family variants (K9 / K10; 'radix4x4' on K1 / K2 / K4-K7), each
+# at the widths it takes: (variant, q bits); 30 and 29 bits on the int32 rep,
+# where the word-64 variants compute on an int64 copy.
+FAMILY = (("radix2", 62), ("radix2", 30), ("radix2-u32", 29), ("seal", 62), ("hexl", 62),
+          ("r2-16", 62), ("radix4", 60), ("radix4", 29), ("radix4-w56", 52), ("radix4-u32", 27),
+          ("r4r2", 60), ("r4r2", 27), ("radix4-vec", 60), ("radix4-vec-unordered", 60),
+          ("radix4x4", 62), ("radix4x4", 29))
+FAMILY_LAST_M = 16  # every m from a variant's least up to here, batch 3
+FAMILY_LARGE = ((20, 2), (24, 1))  # (m, batch), the word-64 widths
+# The HE product of each variant at its widest q, m14 batch 1024: (variant, q
+# bits, or "fixture9" for FIXTURES[9]); the word-64 radix-4 variants take q
+# below 2^60 (api.R4_MAX_Q_BITS)
+FAMILY_HE = (("radix2", 62), ("seal", 62), ("hexl", 62), ("r2-16", 62), ("radix4x4", 62),
+             ("radix4", 60), ("radix4-vec", 60), ("radix4-vec-unordered", 60), ("r4r2", 60),
+             ("radix4-w56", 52), ("radix2-u32", "fixture9"), ("radix4-u32", 27), ("r4r2", 27))
+FAMILY_SMALL_M = (6, 7, 8)  # radix2 and radix4-u32 against pallas-fused, for 'auto'
+FAMILY_SMALL_BATCHES = (128, 1024)
+STAGE_KERNELS = ("r2_stage_u32", "r2_stage_u64", "r4_stage_u32", "r4_stage_u64",
+                 "r4_stage_w56")
 CSRC = "ntt_tpu_torch/csrc/"
 LAB = "tools/pallas_lab.py:"
 LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
@@ -151,6 +189,7 @@ SOURCES = {"fwd_fused": CSRC + "ntt_fused.cu", "inv_fused": CSRC + "ntt_fused.cu
            "mul_mod": CSRC + "pointwise.cu", "fwd_cols": CSRC + "ntt_sixstep.cu",
            "fwd_rows": CSRC + "ntt_sixstep.cu", "inv_rows": CSRC + "ntt_sixstep.cu",
            "inv_cols": CSRC + "ntt_sixstep.cu", "twist_mul": CSRC + "twist.cu",
+           "r2_stage": CSRC + "r2_stage.cu", "r4_stage": CSRC + "r4_stage.cu",
            **{k: CSRC + "ntt_lab.cu" for k in LAB_TRANSFORMS},
            **{k: CSRC + "probes.cu" for k in PROBES}}
 REPLACES = {"fwd_fused": "ntt_tpu/kernels/pallas_fused.py:230",
@@ -161,6 +200,8 @@ REPLACES = {"fwd_fused": "ntt_tpu/kernels/pallas_fused.py:230",
             "inv_rows": "ntt_tpu/kernels/pallas_fused.py:286",
             "inv_cols": "ntt_tpu/kernels/pallas_fused.py:307",
             "twist_mul": "ntt_tpu/kernels/sixstep.py:465",
+            "r2_stage": "ntt_tpu/kernels/radix2.py:65",
+            "r4_stage": "ntt_tpu/kernels/radix4.py:95",
             "fwd_fused_v2_r2": LAB + "127", "fwd_fused_v2_r4": LAB + "127",
             "fwd_fused_v3": LAB + "326", "diag_copy": LAB + "444", "diag_mul": LAB + "402",
             "diag_math": LAB + "455", "diag_moves": LAB + "479"}
@@ -190,7 +231,12 @@ def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int):
     once.  The lab's transforms do K1's work; diag_math runs m rounds of
     butterflies on N/2 pairs, as the lab calls it; twist_mul (n1_log the
     rec split) reads its four tables, (N1, HI) and (N1, LO) words, once
-    and does two Shoup products a word."""
+    and does two Shoup products a word.  For the stage kernels n1_log is
+    the stage's lt: r2_stage reads one twiddle pair a group of its
+    N / 2^(lt+1) groups and does one Shoup product a butterfly; r4_stage
+    reads five pairs a group of its N / 2^(lt+2) groups and does one Shoup
+    product and two dual ones (each as many multiplies as two products) a
+    group of four words."""
     n, size = 1 << m, word // 8
     data = 2 * batch * n * size
     bfly = batch * n // 2 * SHOUP_MULS[word]  # one stage
@@ -213,6 +259,9 @@ def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int):
         "inv_rows": (data + 2 * (n - n1) * size, bfly * (m - n1_log)),
         "twist_mul": (data + 2 * n1 * (twist_hi + twist_lo) * size,
                       2 * batch * n * SHOUP_MULS[word]),
+        "r2_stage": (data + 2 * (n >> (n1_log + 1)) * size, bfly),
+        "r4_stage": (data + 10 * (n >> (n1_log + 2)) * size,
+                     batch * n // 4 * 5 * SHOUP_MULS[word]),
     }[kernel]
 
 
@@ -325,7 +374,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from ntt_tpu_torch import FIXTURES, NttParams, api, bench_params, lab, native, rns
     from ntt_tpu_torch import modmath as mm
-    from ntt_tpu_torch.kernels import fused, fused_lab, pointwise, probes, rec, sixstep, twopass
+    from ntt_tpu_torch.kernels import (fused, fused_lab, pointwise, probes, radix2, radix4, rec,
+                                       sixstep, twopass)
     from ntt_tpu_torch.kernels.elems import pick_ops
     from ntt_tpu_torch.plan import get_plan
 
@@ -882,6 +932,148 @@ def main() -> int:
     print(f"  {len(records)} candidates bit-exact (transforms against the plain six-step "
           "and K1, probes against their plain versions)", flush=True)
 
+    def family_params(bits, m):
+        """The variant phases' params: bench_params at 52 bits and up (the
+        widest q of that many bits), the fixture q 0x1FFC8001 at m14 for
+        "fixture9", a generated q otherwise."""
+        if bits == "fixture9":
+            return FIXTURES[9]
+        return bench_params(m, bits) if bits >= 52 else NttParams.generate(bits, m)
+
+    def lazy_bound(name, m):
+        """The variant's lazy output bound, in units of q."""
+        if name in ("radix4", "radix4-w56", "radix4-u32"):
+            return 8 if m % 2 == 0 else 4
+        return 8 if name.startswith("radix4-vec") else 4
+
+    def on_dev(t):
+        return torch.from_numpy(t).to(dev)
+
+    def check_family(name, p, batch, quiet=True):
+        """One variant at one size on the card: the strict and lazy forward
+        and the inverse (K9 / K10, or K1 / K2 / K4-K7 for radix4x4) equal to
+        the plain versions on the same CUDA tensors; the lazy output below
+        its bound; the strict one equal to the six-step's after the
+        layout's fix; the round trip exact."""
+        v, plan = api.get_variant(name), get_plan(p)
+        hi = 4 * p.q if name == "hexl" else p.q
+        host = rng.integers(0, hi, size=(batch, p.n), dtype=np.uint64)
+        x = mm.from_host(host, p.q, dev, wide=v.word64)
+        tag = f"{name} q{p.q.bit_length()} m{p.m} b{batch}"
+        f = {}
+        for lazy in (False, True):
+            f[lazy] = api.fwd_ntt(x, p, name, lazy=lazy)
+            note(name, f[lazy], v.fwd(plan, x, lazy, plain=True),
+                 f"{tag} {'lazy' if lazy else 'strict'}", quiet=quiet)
+        top = int(mm.to_host(f[True]).max())
+        if top >= lazy_bound(name, p.m) * p.q:
+            raise AssertionError(f"{tag}: lazy output {top} not below "
+                                 f"{lazy_bound(name, p.m)}q")
+        if name == "hexl":
+            x = mm.reduce_4q_to_q(x, p.q)
+        rep = x if x.dtype == plan.dtype else x.to(plan.dtype)
+        perm = on_dev(api.output_layout(name, p).perm)
+        if not torch.equal(f[False][..., perm].to(plan.dtype), api.fwd_ntt(rep, p, "sixstep")):
+            raise AssertionError(f"{tag}: strict forward differs from sixstep's")
+        back = api.inv_ntt(f[False], p, name)
+        note(name, back, v.inv(plan, f[False], plain=True), f"{tag} inverse", quiet=quiet)
+        if not torch.equal(back, x):
+            raise AssertionError(f"{tag}: round trip differs")
+
+    phase(f"reference-family variants vs plain: every m from each one's least to "
+          f"{FAMILY_LAST_M} (batch {BATCH_EVERY_M}), and "
+          + ", ".join(f"m{m} batch {b}" for m, b in FAMILY_LARGE) + " at word 64")
+    for counts in (radix2.MODES, radix4.MODES):
+        counts.clear()
+    for name, bits in FAMILY:
+        v = api.get_variant(name)
+        for m in range(v.min_m, FAMILY_LAST_M + 1):
+            check_family(name, family_params(bits, m), BATCH_EVERY_M)
+        large = [(m, b) for m, b in FAMILY_LARGE if bits >= 52]
+        for m, b in large:
+            t0 = time.perf_counter()
+            p = family_params(bits, m)
+            check_family(name, p, b)
+            print(f"    {name} q{bits} m{m} b{b}: {time.perf_counter() - t0:.1f} s "
+                  "(tables built in it)", flush=True)
+        torch.cuda.synchronize()
+        print(f"  {name} q{bits}: strict, lazy (below {lazy_bound(name, 2)}q / "
+              f"{lazy_bound(name, 1)}q at even / odd m) and inverse equal to plain, strict equal "
+              f"to sixstep's, round trip exact at m{v.min_m}-m{FAMILY_LAST_M} batch "
+              f"{BATCH_EVERY_M}" + "".join(f", m{m} batch {b}" for m, b in large), flush=True)
+        torch.cuda.empty_cache()
+    modes = sorted(set(radix2.MODES) | set(radix4.MODES))
+    print(f"  K9 / K10 (entry point, mode, twiddle view) run: {modes}", flush=True)
+    want_modes = {("r2_stage_u64", k, "std") for k in ("fwd", "bkw", "final", "seal_final")}
+    want_modes |= {("r2_stage_u64", "fwd", v) for v in ("hexl", "r2_16", "r4r2")}
+    want_modes |= {("r2_stage_u32", k, "std") for k in ("fwd", "bkw", "final")}
+    want_modes |= {(k, mode, "pairs") for k in ("r4_stage_u32", "r4_stage_u64", "r4_stage_w56")
+                   for mode in ("r2_fwd", "r2_bkw")}
+    want_modes |= {(k, mode, "expand") for k in ("r4_stage_u32", "r4_stage_u64", "r4_stage_w56")
+                   for mode in ("r4_fwd", "r4_inv")}
+    want_modes |= {("r4_stage_u64", mode, "region") for mode in ("r4_fwd", "r4_inv")}
+    if want_modes - set(modes):
+        raise AssertionError(f"K9 / K10 modes never run: {sorted(want_modes - set(modes))}")
+
+    # each entry point on one stage of the timed shape (m14 batch 1024), as
+    # the kernel table's rows: kernel against plain_stage
+    stage_cases = {}
+    for name, bits, mode, lt in (("r2_stage_u64", 62, radix2.FWD, 6),
+                                 ("r2_stage_u32", 29, radix2.FWD, 6),
+                                 ("r4_stage_u64", 60, radix4.R4_FWD, 6),
+                                 ("r4_stage_u32", 27, radix4.R4_FWD, 6),
+                                 ("r4_stage_w56", 52, radix4.R4_FWD, 6)):
+        p = family_params(bits, 14)
+        plan = get_plan(p)
+        word = 56 if name.endswith("w56") else int(name[-2:])
+        tabs = plan.device_tables(dev)
+        if name.startswith("r2"):
+            st, tab = radix2.R2Stage(lt=lt, mode=mode, base=1 << (13 - lt)), "w"
+            kern, plain = radix2.r2_stage, radix2.plain_stage
+        else:
+            st, tab = radix4.R4Stage(lt=lt, mode=mode), "w_r4"
+            kern, plain = radix4.r4_stage, radix4.plain_stage
+        con = radix2.con_name(tab, word)
+        host = rng.integers(0, 4 * p.q, size=(BATCH_HE, p.n), dtype=np.uint64)
+        x = mm.from_host(host, p.q, dev, wide=word != 32)
+        args = (tabs.table(tab, word), tabs.table(con, word), st, p.q, word,
+                radix2.consts_at(plan, word))
+        note(name, kern(x, *args), plain(x, *args), f"{name} one stage (lt {lt}) at m14 "
+             f"batch {BATCH_HE}, inputs < 4q")
+        stage_cases[name] = (kern, plain, x, args, lt, word)
+
+    phase(f"main path of the variant slice: negacyclic_mul of every variant at m14 batch "
+          f"{BATCH_HE}, each at its widest q, against 'auto'")
+    he5 = {}
+    for name, bits in FAMILY_HE:
+        p = family_params(bits, 14)
+        if bits not in he5:
+            he5[bits] = (p, rand(p, BATCH_HE), rand(p, BATCH_HE))
+    want5 = {bits: api.negacyclic_mul(x, y, p) for bits, (p, x, y) in he5.items()}
+    torch.cuda.synchronize()
+    family_counts = (radix2.LAUNCHES, radix4.LAUNCHES, fused.LAUNCHES, pointwise.LAUNCHES)
+    for counts in family_counts:
+        for k in counts:
+            counts[k] = 0
+    prod5 = {(name, bits): api.negacyclic_mul(he5[bits][1], he5[bits][2], he5[bits][0],
+                                              variant=name)
+             for name, bits in FAMILY_HE}
+    torch.cuda.synchronize()
+    launches5 = {k: v for c in family_counts for k, v in c.items()}
+    print(f"  launch counts of this path: {launches5}", flush=True)
+    idle = [k for k in STAGE_KERNELS + ("fwd_fused_u64", "inv_fused_u64") if launches5[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched by the variant slice's path: {idle}")
+    for (name, bits), got in prod5.items():
+        p = he5[bits][0]
+        if not torch.equal(got, want5[bits]):
+            raise AssertionError(f"{name} q{p.q.bit_length()}: negacyclic_mul differs from "
+                                 "'auto''s")
+    print("  " + ", ".join(f"{n} (q {he5[b][0].q:#x})" for n, b in FAMILY_HE)
+          + f": negacyclic_mul {tuple(he5[62][1].shape)} equals 'auto''s", flush=True)
+    del want5
+
+
     phase(f"times (kernels from a CUDA graph of launches, plain versions and API calls "
           f"between CUDA events; min over reps; {smi})")
     table = []
@@ -1160,6 +1352,47 @@ def main() -> int:
     del hx_dev, tx_dev
     torch.cuda.empty_cache()
 
+
+    # the reference-family variants: each one's forward and product at m14
+    # batch 1024 against K1's and 'auto''s (device time from a CUDA graph);
+    # K9 / K10 a stage beside their bounds, their plain versions at batch 32
+    # between CUDA events; radix2 and radix4-u32 against pallas-fused at m6-m8
+    # in a graph and in a stream of 20 calls, for 'auto'
+    fam_rows = []
+    for name, bits in FAMILY_HE:
+        p, x, y = he5[bits]
+        f_us = lab.cuda_us(lambda t: api.fwd_ntt(t, p, name), x, 3, 5)
+        k1_us = lab.cuda_us(lambda t: api.fwd_ntt(t, p, "pallas-fused"), x, 3, 5)
+        m_us = lab.cuda_us(lambda _: api.negacyclic_mul(x, y, p, variant=name), None, 3, 3)
+        a_us = lab.cuda_us(lambda _: api.negacyclic_mul(x, y, p), None, 3, 3)
+        fam_rows.append({"variant": name, "q": hex(p.q), "fwd_us": f_us, "k1_fwd_us": k1_us,
+                         "product_us": m_us, "auto_product_us": a_us})
+        print(f"  {name} q {p.q:#x} m14 batch {BATCH_HE}: forward {f_us:.1f} us (K1 "
+              f"{k1_us:.1f}), product {m_us:.1f} us ('auto' {a_us:.1f})", flush=True)
+    print(f"  variant times: {json.dumps(fam_rows)}", flush=True)
+    for name, (kern, plain, x, args, lt, word) in stage_cases.items():
+        small = x[:LAB_BATCH_CHECK].contiguous()
+        k_ms, p_ms = kernel_in_turns(torch, lab, lambda: kern(x, *args),
+                                     lambda: plain(small, *args), 2)
+        entry(name, launches5[name], k_ms, p_ms, 14, lt, BATCH_HE, 32 if word == 32 else 64,
+              f"m14 batch {BATCH_HE}, one stage (lt {lt})", record=True,
+              plain_shape=f"m14 batch {LAB_BATCH_CHECK}")
+    small_rows = []
+    for m in FAMILY_SMALL_M:
+        for name, p in (("radix2", bench_params(m, 62)), ("radix4-u32", NttParams.generate(27, m))):
+            for batch in FAMILY_SMALL_BATCHES:
+                x = rand(p, batch)
+                row = {"m": m, "q": hex(p.q), "batch": batch}
+                for v in (name, "pallas-fused"):
+                    row[v] = {"graph_us": lab.cuda_us(lambda u, v=v: api.fwd_ntt(u, p, v), x, 3, 5),
+                              "stream_us": stream_us(lambda u, v=v: api.fwd_ntt(u, p, v), x)}
+                small_rows.append(row)
+                print(f"  m{m} batch {batch}: {name} " + ", ".join(
+                    f"{v} graph {row[v]['graph_us']:.1f} / stream {row[v]['stream_us']:.1f} us"
+                    for v in (name, "pallas-fused")), flush=True)
+    print(f"  small-m forwards for 'auto': {json.dumps(small_rows)}", flush=True)
+    del he5, stage_cases
+    torch.cuda.empty_cache()
 
     # the lab's kernels at the lab's shape, timed as the lab times them (a
     # CUDA graph of launches); their plain versions at batch 32; the one

@@ -24,6 +24,12 @@ whose lazy outputs differ from the six-step's by contract, so lazy
 outputs are compared per named variant.  Strict outputs
 are the same for every variant.
 
+The reference's variant families run under their JAX names on K9
+``r2_stage`` / K10 ``r4_stage`` (``kernels/radix2.py``, ``radix4.py``,
+``mixed.py``); ``"radix4x4"`` runs the register rounds of K1 / K2 and
+K4-K7.  ``"radix4-vec-unordered"`` returns the forward in the layout of
+``output_layout`` and its inverse reads it.
+
 ``"sixstep-unordered"`` returns the forward in the transposed layout that
 ``output_layout`` describes, and its inverse reads that layout; the
 layout's split is the JAX package's (``kernels.sixstep.word_split``), so
@@ -42,7 +48,9 @@ import numpy as np
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch.kernels import fused, layouts, pointwise, rec, sixstep, twopass
+from ntt_tpu_torch.kernels import (fused, layouts, mixed, pointwise, radix2, radix4, rec, sixstep,
+                                   twopass)
+from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.params import NttParams
 from ntt_tpu_torch.plan import NttPlan, get_plan
 
@@ -50,7 +58,13 @@ from ntt_tpu_torch.plan import NttPlan, get_plan
 @dataclasses.dataclass(frozen=True)
 class Variant:
     """Registry entry.  fwd(plan, tensor, lazy) and inv(plan, tensor) map a
-    device rep to a device rep; max_m bounds m per word (32, 64)."""
+    device rep to a device rep; max_m bounds m per word (32, 64), min_m
+    from below.  A ``word64`` variant computes at Shoup word 64 (or 56)
+    for every q, as its JAX namesake does: it takes the plan's rep or an
+    int64 tensor (numpy input goes in as int64).  The reference-family
+    variants' fwd and inv also take plain=True: their kernels' plain
+    versions wherever the tensor lies (what the card's kernels are held
+    against)."""
 
     name: str
     fwd: Callable
@@ -58,6 +72,8 @@ class Variant:
     max_q_bits: int = 62
     max_m: tuple[int, int] | None = None
     description: str = ""
+    min_m: int = 1
+    word64: bool = False
 
 
 _REGISTRY: dict[str, Variant] = {}
@@ -141,6 +157,163 @@ register(
     )
 )
 
+# -- the reference's variant families (ntt_tpu/api.py:190-270, :741-752,
+# :914-1115), on K9 / K10 (kernels/radix2.py, radix4.py, mixed.py) and, for
+# 'radix4x4', on K1 / K2 and K4-K7 --------------------------------------------
+
+# The word-64 radix-4 variants take q < 2^60, not the JAX package's 2^61: their
+# dual Shoup product is below 2q only while t1 + t2 < 16q <= 2^64.  At a
+# 61-bit q it can reach 3q, a butterfly's output then passes 2^64, and the
+# strict forward is wrong for some inputs, in the JAX package as in its
+# refmodel (tests/test_torch_variants.py, test_radix4_cap_below_2_61).
+R4_MAX_Q_BITS = 60
+
+
+def _at_word64(plan: NttPlan, a: torch.Tensor, fn, bound: int = 1) -> torch.Tensor:
+    """fn (a word-64 transform) of ``a``: an int64 tensor as it is; the
+    int32 rep of a q < 2^30 through an int64 working copy, narrowed back,
+    where the output's bound (``bound`` * q) fits 32 bits."""
+    if a.dtype == torch.int64:
+        return fn(a)
+    if bound * plan.q > 1 << 32:
+        raise ValueError(f"the output reaches {bound}q > 2^32 for q = {plan.q:#x}: an int32 "
+                         "tensor cannot hold it; pass an int64 tensor (or numpy input)")
+    return fn(a.to(torch.int64) & mm.MASK32).to(torch.int32)
+
+
+def _word64_variant(name: str, fwd, inv, lazy_bound=(4, 4), **kw) -> Variant:
+    """A word64 Variant of fwd(plan, a, strict, plain) and inv(plan, a,
+    plain); the lazy forward is below lazy_bound[m % 2] * q."""
+    return register(Variant(
+        name,
+        fwd=lambda plan, a, lazy, plain=False: _at_word64(
+            plan, a, lambda x: fwd(plan, x, not lazy, plain),
+            lazy_bound[plan.m % 2] if lazy else 1),
+        inv=lambda plan, a, plain=False: _at_word64(plan, a, lambda x: inv(plan, x, plain)),
+        word64=True, **kw))
+
+
+def _radix2_inv(plan: NttPlan, a, plain=False):
+    return radix2.inv(a, plan, 64, plain)
+
+
+_word64_variant(
+    "radix2", lambda plan, a, strict, plain: radix2.fwd(a, plan, 64, strict, plain), _radix2_inv,
+    description="radix-2 Harvey at word 64 (the reference's src/ntt_reference.c): one K9 "
+    "launch a stage; lazy output < 4q")
+register(Variant(
+    "radix2-u32",
+    fwd=lambda plan, a, lazy, plain=False: radix2.fwd(a, plan, 32, not lazy, plain),
+    inv=lambda plan, a, plain=False: radix2.inv(a, plan, 32, plain),
+    max_q_bits=mm.U32_PATH_MAX_Q_BITS_R2,
+    description="radix-2 Harvey at word 32 on int32 reps (q < 2^30): one K9 launch a stage"))
+_word64_variant(
+    "radix4", lambda plan, a, strict, plain: radix4.fwd(a, plan, 64, strict, plain),
+    lambda plan, a, plain: radix4.inv(a, plan, 64, plain), (8, 4), max_q_bits=R4_MAX_Q_BITS,
+    description="radix-4 five-twiddle at word 64 (src/ntt_radix4.c): one K10 launch a "
+    "radix-4 stage, a radix-2 sweep for odd log2 N; lazy output < 8q (even) / 4q (odd)")
+register(Variant(
+    "radix4-u32",
+    fwd=lambda plan, a, lazy, plain=False: radix4.fwd(a, plan, 32, not lazy, plain),
+    inv=lambda plan, a, plain=False: radix4.inv(a, plan, 32, plain),
+    max_q_bits=mm.U32_PATH_MAX_Q_BITS_R4,
+    description="radix-4 at word 32 on int32 reps (q < 2^28: the dual product needs "
+    "16q <= 2^32): one K10 launch a stage"))
+_word64_variant(
+    "radix4-w56", lambda plan, a, strict, plain: radix4.fwd(a, plan, 56, strict, plain),
+    lambda plan, a, plain: radix4.inv(a, plan, 56, plain), (8, 4),
+    max_q_bits=mm.W56_PATH_MAX_Q_BITS,
+    description="radix-4 at Shoup word 56, the s390x VMSL form "
+    "(src/ntt_radix4_s390x_vef.c): quotients are bits 56.. of the 128-bit constant "
+    "products; q < 2^52; K10 at word 56")
+
+
+def _r4r2_word(plan: NttPlan) -> int:
+    """The JAX dispatch: word 32 where q < 2^28, else word 64."""
+    return 32 if plan.q < 1 << mm.U32_PATH_MAX_Q_BITS_R4 else 64
+
+
+def _r4r2_fwd(plan: NttPlan, a, lazy: bool, plain: bool = False):
+    if _r4r2_word(plan) == 32:
+        return mixed.fwd(a, plan, 32, not lazy, plain)
+    return _at_word64(plan, a, lambda x: mixed.fwd(x, plan, 64, not lazy, plain),
+                      4 if lazy else 1)
+
+
+def _r4r2_inv(plan: NttPlan, a, plain: bool = False):
+    if _r4r2_word(plan) == 32:
+        return mixed.inv(a, plan, 32, plain)
+    return _at_word64(plan, a, lambda x: mixed.inv(x, plan, 64, plain))
+
+
+register(Variant(
+    "r4r2", fwd=_r4r2_fwd, inv=_r4r2_inv, max_q_bits=R4_MAX_Q_BITS,
+    description="mixed radix (src/ntt_r4r2_avx512_ifma.c): radix-4 sweeps on K10, a "
+    "radix-2 tail of 4 (even log2 N) or 3 stages on K9, over the 5N r4r2 layout at word "
+    "64 from N = 128; word 32 where q < 2^28, word 64 beyond; lazy output < 4q"))
+_word64_variant(
+    "seal", lambda plan, a, strict, plain: radix2.fwd_seal(a, plan, strict, plain),
+    lambda plan, a, plain: radix2.inv_seal(a, plan, plain),
+    description="SEAL's radix-2 (third_party/seal/ntt_seal.c) at word 64: the forward's "
+    "values are the Harvey chain's; the inverse keeps SEAL's final stage (guard "
+    "placement, fused scaled_r, trailing 2q -> q sweep), a K9 mode of its own")
+
+
+def _radix4x4_fwd(plan: NttPlan, a, lazy: bool, plain: bool = False):
+    if plain:
+        tabs = plan.device_tables(a.device)
+        return sixstep.fwd_sixstep(a, pick_ops(plan.q), tabs.w, tabs.w_con, plan.q,
+                                   strict=not lazy)
+    if plan.m <= fused.max_logn(plan.word):
+        return fused.fwd_fused(a, plan, strict=not lazy)
+    return _sixstep_fwd(plan, a, lazy)
+
+
+def _radix4x4_inv(plan: NttPlan, a, plain: bool = False):
+    if plain:
+        tabs = plan.device_tables(a.device)
+        return sixstep.inv_sixstep(a, pick_ops(plan.q), tabs.w_inv, tabs.w_inv_con,
+                                   *plan.inv_consts, plan.q)
+    if plan.m <= fused.max_logn(plan.word):
+        return fused.inv_fused(a, plan)
+    return _sixstep_inv(plan, a)
+
+
+register(Variant(
+    "radix4x4", fwd=_radix4x4_fwd, inv=_radix4x4_inv,
+    description="radix-16 blocks (src/ntt_radix4x4.c): four radix-2 layers a round in "
+    "registers, the register rounds of K1 / K2 within one block and of K4-K7 beyond; "
+    "the flat radix-2 bits, lazy included"))
+_word64_variant(
+    "radix4-vec", lambda plan, a, strict, plain: radix4.fwd_vec(a, plan, strict, False, plain),
+    lambda plan, a, plain: radix4.inv_vec(a, plan, False, plain), (8, 8),
+    max_q_bits=R4_MAX_Q_BITS, min_m=8,
+    description="radix-4 over the 5N vector layout (src/ntt_radix4_avx512_ifma.c): a "
+    "leading radix-2 stage for odd log2 N, quintuples from the FWD8 / FWD4 / FWD1 regions "
+    "in emission order; the inverse walks the inverse root's regions backwards; K10, "
+    "N >= 256; lazy output < 8q")
+_word64_variant(
+    "radix4-vec-unordered",
+    lambda plan, a, strict, plain: radix4.fwd_vec(a, plan, strict, True, plain),
+    lambda plan, a, plain: radix4.inv_vec(a, plan, True, plain), (8, 8),
+    max_q_bits=R4_MAX_Q_BITS, min_m=8,
+    description="radix4-vec whose last radix-4 stage takes its groups in the FWD1 "
+    "region's LANE_PERM order and stores them in place "
+    "(src/ntt_radix4_avx512_ifma_unordered.c): output in output_layout()'s order, which "
+    "the inverse reads as it is")
+_word64_variant(
+    "hexl", lambda plan, a, strict, plain: radix2.fwd_layout(a, plan, "hexl", strict, plain),
+    _radix2_inv, min_m=3,
+    description="Intel HEXL's radix-2 (third_party/hexl/fwd-ntt-avx512.c): the forward "
+    "reads the 13N/8 duplicated layout; inputs below 4q; the inverse is radix2's, as in "
+    "the JAX package")
+_word64_variant(
+    "r2-16", lambda plan, a, strict, plain: radix2.fwd_layout(a, plan, "r2_16", strict, plain),
+    _radix2_inv, min_m=4,
+    description="radix-2 over the 3N r2_16 layout (src/ntt_r2_16_avx512_ifma.c), its tail "
+    "segments read through their duplications and lane orders; the inverse is radix2's")
+
+
 # The (width, m) cells where 'auto' takes 'sixstep-rec', with the range of
 # batches (rows, both ends measured) it takes it at: where chip_smoke.py's
 # rec-against-flat timing found it faster than the flat 'sixstep' by more
@@ -162,6 +335,8 @@ def output_layout(variant: str, params_or_plan) -> layouts.Layout:
     plan = _resolve(params_or_plan)
     if variant == "sixstep-unordered":
         return layouts.transposed(plan.n, _split(plan))
+    if variant == "radix4-vec-unordered":
+        return layouts.radix4_vec_unordered(plan.n)
     return layouts.standard(plan.n)
 
 
@@ -194,6 +369,8 @@ def _pick(plan: NttPlan, variant: str, inverse: bool = False,
             f"variant {v.name} supports q < 2^{v.max_q_bits}, got "
             f"{plan.q.bit_length()}-bit q"
         )
+    if plan.m < v.min_m:
+        raise ValueError(f"variant {v.name} needs m >= {v.min_m}, got m={plan.m}")
     if v.max_m is not None:
         cap = v.max_m[0] if plan.word == 32 else v.max_m[1]
         if plan.m > cap:
@@ -204,17 +381,23 @@ def _pick(plan: NttPlan, variant: str, inverse: bool = False,
     return v
 
 
-def _to_device(a, plan: NttPlan, device):
-    """(device rep, came_from_host) for a numpy array or a tensor."""
+def _to_device(a, plan: NttPlan, device, word64: bool = False):
+    """(device rep, came_from_host) for a numpy array or a tensor; with
+    word64 an int64 tensor is taken for any q, and numpy goes in as one."""
     if isinstance(a, torch.Tensor):
-        if a.dtype != plan.dtype:
+        if a.dtype != plan.dtype and not (word64 and a.dtype == torch.int64):
             raise TypeError(f"expected {plan.dtype} for q={plan.q:#x}, got {a.dtype}")
         t, host = a.contiguous(), False
     else:
-        t, host = mm.from_host(a, plan.q, device), True
+        t, host = mm.from_host(a, plan.q, device, wide=word64), True
     if t.dim() < 1 or t.shape[-1] != plan.n:
         raise ValueError(f"last dim must be N={plan.n}, got shape {tuple(t.shape)}")
     return t, host
+
+
+def _rows(a, plan: NttPlan) -> int:
+    """The batch of an input: its size over N."""
+    return int(np.prod(np.shape(a))) // plan.n
 
 
 def _same_kind(a, b):
@@ -228,16 +411,18 @@ def fwd_ntt(a, params_or_plan, variant: str = "auto", lazy: bool = False,
     bit-reversed out; strict output in [0, q), or with lazy the variant's
     lazy representatives (< 4q for pallas-fused)."""
     plan = _resolve(params_or_plan)
-    x, host = _to_device(a, plan, device)
-    out = _pick(plan, variant, rows=x.numel() // plan.n).fwd(plan, x, lazy)
+    v = _pick(plan, variant, rows=_rows(a, plan))
+    x, host = _to_device(a, plan, device, v.word64)
+    out = v.fwd(plan, x, lazy)
     return mm.to_host(out) if host else out
 
 
 def inv_ntt(a, params_or_plan, variant: str = "auto", device="cuda"):
     """Inverse negacyclic NTT (strict output in [0, q))."""
     plan = _resolve(params_or_plan)
-    x, host = _to_device(a, plan, device)
-    out = _pick(plan, variant, inverse=True, rows=x.numel() // plan.n).inv(plan, x)
+    v = _pick(plan, variant, inverse=True, rows=_rows(a, plan))
+    x, host = _to_device(a, plan, device, v.word64)
+    out = v.inv(plan, x)
     return mm.to_host(out) if host else out
 
 

@@ -1,6 +1,8 @@
 // Modular arithmetic of the negacyclic NTT at word 32 and word 64, for host
 // and device: the Harvey butterflies, the fused final inverse stage, the
-// Shoup multiply, the lazy reduce ladder and the variable x variable product.
+// Shoup multiply, the lazy reduce ladder and the variable x variable product;
+// and for the radix-4 stages (K10) the dual Shoup product at words 64, 32 and
+// 56 and the single product at word 56 (``Word<W>``).
 //
 // Device form of ntt_tpu_torch/modmath.py and kernels/elems.py, which mirror
 // ntt_tpu/modmath.py and ntt_tpu/kernels/elems.py bit for bit.  The JAX
@@ -80,6 +82,72 @@ template <typename T>
 NTT_HD T shoup_mul_q2(T w, T w_con, T t, T q) {
   return (T)(w * t - mulhi(w_con, t) * q);
 }
+
+// Dual Shoup product t1*w1 + t2*w2 with ONE quotient, the high word of the
+// 128-bit sum c1*t1 + c2*t2 (ntt_tpu.modmath.shoup_dbl_mul_q2): in [0, 2q)
+// for t1 + t2 within the radix-4 bound.  Two separate products would give
+// other lazy representatives than the reference's.
+NTT_HD u64 shoup_dbl_mul_q2(u64 w1, u64 c1, u64 w2, u64 c2, u64 t1, u64 t2, u64 q) {
+  const u64 lo1 = c1 * t1;
+  const u64 lo = lo1 + c2 * t2;
+  const u64 big_q = mulhi(c1, t1) + mulhi(c2, t2) + (lo < lo1 ? 1 : 0);
+  return w1 * t1 + w2 * t2 - big_q * q;
+}
+
+// At word 32 the quotient is bits 32..63 of the 64-bit sum; its carry out of
+// bit 64 does not reach Q*q mod 2^32 (ntt_tpu.kernels.radix4._shoup_dbl32_q2).
+NTT_HD u32 shoup_dbl_mul_q2(u32 w1, u32 c1, u32 w2, u32 c2, u32 t1, u32 t2, u32 q) {
+  const u32 big_q = (u32)(((u64)c1 * t1 + (u64)c2 * t2) >> 32);
+  return w1 * t1 + w2 * t2 - big_q * q;
+}
+
+// Word 56, the s390x VMSL form (ntt_tpu.modmath.shoup_mul56_q2 /
+// shoup_dbl_mul56_q2): w_con = floor(w * 2^56 / q) and the quotient is bits
+// 56..119 of the 128-bit product (or of the sum of two).
+NTT_HD u64 shr128_56(u64 lo, u64 hi) { return (hi << 8) | (lo >> 56); }
+
+NTT_HD u64 shoup_mul56_q2(u64 w, u64 w_con, u64 t, u64 q) {
+  return w * t - shr128_56(w_con * t, mulhi(w_con, t)) * q;
+}
+
+NTT_HD u64 shoup_dbl_mul56_q2(u64 w1, u64 c1, u64 w2, u64 c2, u64 t1, u64 t2, u64 q) {
+  const u64 lo1 = c1 * t1;
+  const u64 lo = lo1 + c2 * t2;
+  const u64 hi = mulhi(c1, t1) + mulhi(c2, t2) + (lo < lo1 ? 1 : 0);
+  return w1 * t1 + w2 * t2 - shr128_56(lo, hi) * q;
+}
+
+// The Shoup products of one word: the storage type T, mul (one product) and
+// dbl (the dual product).
+template <int W>
+struct Word;
+
+template <>
+struct Word<32> {
+  typedef u32 T;
+  static NTT_HD u32 mul(u32 w, u32 c, u32 t, u32 q) { return shoup_mul_q2<u32>(w, c, t, q); }
+  static NTT_HD u32 dbl(u32 w1, u32 c1, u32 w2, u32 c2, u32 t1, u32 t2, u32 q) {
+    return shoup_dbl_mul_q2(w1, c1, w2, c2, t1, t2, q);
+  }
+};
+
+template <>
+struct Word<64> {
+  typedef u64 T;
+  static NTT_HD u64 mul(u64 w, u64 c, u64 t, u64 q) { return shoup_mul_q2<u64>(w, c, t, q); }
+  static NTT_HD u64 dbl(u64 w1, u64 c1, u64 w2, u64 c2, u64 t1, u64 t2, u64 q) {
+    return shoup_dbl_mul_q2(w1, c1, w2, c2, t1, t2, q);
+  }
+};
+
+template <>
+struct Word<56> {
+  typedef u64 T;
+  static NTT_HD u64 mul(u64 w, u64 c, u64 t, u64 q) { return shoup_mul56_q2(w, c, t, q); }
+  static NTT_HD u64 dbl(u64 w1, u64 c1, u64 w2, u64 c2, u64 t1, u64 t2, u64 q) {
+    return shoup_dbl_mul56_q2(w1, c1, w2, c2, t1, t2, q);
+  }
+};
 
 // Harvey forward butterfly: inputs < 4q, outputs < 4q.
 template <typename T>

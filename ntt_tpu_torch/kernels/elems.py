@@ -4,6 +4,9 @@ The counterpart of ``ntt_tpu/kernels/elems.py``.  A rep is a single
 tensor (int32 for q < 2^30, int64 for q < 2^62); the JAX package's
 (lo, hi) uint32 limb pair does not exist here.  Twiddle operands are
 tensors that broadcast against x and y; scalar constants are Python ints.
+Each class also carries the primitives of the radix-4 butterflies
+(``cond_sub``, ``const``, ``shoup_mul``, ``dbl``); ``W56Ops`` has only
+those, at Shoup word 56 on int64 reps.
 """
 
 from __future__ import annotations
@@ -15,6 +18,9 @@ class U32Ops:
     """Word-32 Shoup constants; q < 2^30; int32 reps."""
 
     word = 32
+    cond_sub = staticmethod(mm.cond_sub32)
+    const = staticmethod(mm.s32)
+    dbl = staticmethod(mm.shoup_dbl_mul32_q2)
 
     @staticmethod
     def fwd_bfly(x, y, wo, wc, q: int):
@@ -63,6 +69,9 @@ class U64Ops:
     ``ntt_tpu.refmodel`` including lazy representatives."""
 
     word = 64
+    cond_sub = staticmethod(mm.cond_sub64)
+    const = staticmethod(mm.s64)
+    dbl = staticmethod(mm.shoup_dbl_mul_q2)
 
     @staticmethod
     def fwd_bfly(x, y, wo, wc, q: int):
@@ -99,6 +108,22 @@ class U64Ops:
     @staticmethod
     def mul_mod(x, y, q: int):
         return mm.mul_mod_q(x, y, q)
+
+
+class W56Ops:
+    """Shoup constants at word 56 (the JAX package's 'radix4-w56', the
+    s390x VMSL form); q < 2^52; int64 reps."""
+
+    word = 56
+    cond_sub = staticmethod(mm.cond_sub64)
+    const = staticmethod(mm.s64)
+    shoup_mul = staticmethod(mm.shoup_mul56_q2)
+    dbl = staticmethod(mm.shoup_dbl_mul56_q2)
+
+
+def ops_at(word: int):
+    """The ops of Shoup word 32, 56 or 64."""
+    return {32: U32Ops, 56: W56Ops, 64: U64Ops}[word]
 
 
 def pick_ops(q: int):

@@ -1,7 +1,7 @@
 """Output-order descriptors of the forward transforms.
 
 The counterpart of ``ntt_tpu/kernels/layouts.py`` (``Layout``,
-``standard``, ``transposed``).  A variant may return its forward output in
+``standard``, ``radix4_vec_unordered``, ``transposed``).  A variant may return its forward output in
 any documented layout, named by a ``Layout`` that carries the permutation
 back to the standard order (bit-reversed, as every reference forward).
 Applying one is a gather on the host or the device, never part of the hot
@@ -31,10 +31,30 @@ class Layout:
         tensor)."""
         return a[..., self.perm]
 
+    def unfix(self, a):
+        """The inverse of ``fix``: ``a`` in the standard order re-ordered to
+        this layout."""
+        inv = np.empty_like(self.perm)
+        inv[self.perm] = np.arange(self.n)
+        return a[..., inv]
+
 
 def standard(n: int) -> Layout:
     """The identity layout: the reference's bit-reversed output order."""
     return Layout("standard", n, np.arange(n))
+
+
+def radix4_vec_unordered(n: int) -> Layout:
+    """The 'radix4-vec-unordered' forward's order: its last radix-4 stage
+    (t == 1, groups of 4 words) takes the groups of each block of 8 in
+    LANE_PERM order and stores them in place, so standard group 8b + j sits
+    at slot argsort(LANE_PERM)[j] of block b."""
+    from ntt_tpu_torch.twiddles import LANE_PERM
+
+    slot_of = np.argsort(LANE_PERM)
+    r = np.arange(n)
+    g, c = r >> 2, r & 3
+    return Layout("radix4-vec-unordered", n, 4 * (((g >> 3) << 3) + slot_of[g & 7]) + c)
 
 
 def transposed(n: int, n1_log: int) -> Layout:

@@ -27,6 +27,13 @@ import numpy as np
 import torch
 
 U32_PATH_MAX_Q_BITS = 30  # Shoup at word 32 needs t < 4q <= 2^32
+# The JAX package's bounds of its single-lane and word-56 variants
+# (``ntt_tpu.modmath``): radix-2 at word 32 needs t < 4q <= 2^32; the dual
+# product of radix-4 at word 32 needs t1 + t2 < 16q <= 2^32; at word 56 it
+# needs t1 + t2 < 16q <= 2^56.
+U32_PATH_MAX_Q_BITS_R2 = U32_PATH_MAX_Q_BITS
+U32_PATH_MAX_Q_BITS_R4 = 28
+W56_PATH_MAX_Q_BITS = 52
 MASK32 = 0xFFFFFFFF
 _SIGN64 = -(1 << 63)
 _SIGN32 = -(1 << 31)
@@ -58,8 +65,9 @@ def s32(c: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def from_host(a, q: int, device) -> torch.Tensor:
-    """numpy uint64 values -> the device rep of the width that q selects.
+def from_host(a, q: int, device, wide: bool = False) -> torch.Tensor:
+    """numpy uint64 values -> the device rep of the width that q selects
+    (int64 for any q with wide).
 
     Raises if ``device`` is a CUDA device and no card is present: nothing
     here picks the CPU in its place."""
@@ -70,7 +78,7 @@ def from_host(a, q: int, device) -> torch.Tensor:
             "pass device='cpu' to run the plain PyTorch path"
         )
     a = np.ascontiguousarray(a, dtype=np.uint64)
-    if uses_u32(q):
+    if uses_u32(q) and not wide:
         host = a.astype(np.uint32).view(np.int32)
     else:
         host = a.view(np.int64)
@@ -100,6 +108,11 @@ def shr64(x, k: int):
 def ult64(a, b_const: int):
     """Unsigned a < b for an int64 tensor a and a constant b."""
     return (a ^ _SIGN64) < ((b_const & ((1 << 64) - 1)) - (1 << 63))
+
+
+def ult64t(a, b):
+    """Unsigned a < b for two int64 tensors."""
+    return (a ^ _SIGN64) < (b ^ _SIGN64)
 
 
 def _halves64(x):
@@ -160,6 +173,50 @@ def shoup_mul_q(w, w_con, t, q: int):
     return reduce_2q_to_q(shoup_mul_q2(w, w_con, t, q), q)
 
 
+def _s64(c):
+    return s64(c) if isinstance(c, int) else c
+
+
+def mul128(a, b):
+    """(lo, hi) 64-bit halves of the 128-bit product of two uint64
+    patterns (either may be a constant)."""
+    return _s64(a) * _s64(b), mulhi64(a, b)
+
+
+def add128(p, r):
+    """(lo, hi) of the 128-bit sum of two (lo, hi) pairs, mod 2^128."""
+    lo = p[0] + r[0]
+    return lo, p[1] + r[1] + ult64t(lo, p[0]).to(lo.dtype)
+
+
+def shoup_dbl_mul_q2(w1, c1, w2, c2, t1, t2, q: int):
+    """Fused t1*w1 + t2*w2 with one quotient, hi64(c1*t1 + c2*t2) of the
+    128-bit sum (``ntt_tpu.modmath.shoup_dbl_mul_q2``); in [0, 2q) for
+    t1 + t2 within the radix-4 bound.  Two separate Shoup products give
+    other lazy representatives."""
+    big_q = add128(mul128(c1, t1), mul128(c2, t2))[1]
+    return _s64(w1) * t1 + _s64(w2) * t2 - big_q * s64(q)
+
+
+def _shr128_56(p):
+    """Low 64 bits of a 128-bit (lo, hi) pair shifted right by 56."""
+    return (p[1] << 8) | shr64(p[0], 56)
+
+
+def shoup_mul56_q2(w, w_con, t, q: int):
+    """Shoup at word 56 (``ntt_tpu.modmath.shoup_mul56_q2``): the quotient
+    is bits 56.. of the 128-bit w_con*t, w_con = floor(w * 2^56 / q);
+    in [0, 2q) for t <= 2^56."""
+    return _s64(w) * t - _shr128_56(mul128(w_con, t)) * s64(q)
+
+
+def shoup_dbl_mul56_q2(w1, c1, w2, c2, t1, t2, q: int):
+    """The fused pair at word 56 (``ntt_tpu.modmath.shoup_dbl_mul56_q2``):
+    one quotient, bits 56.. of the 112-bit c1*t1 + c2*t2."""
+    big_q = _shr128_56(add128(mul128(c1, t1), mul128(c2, t2)))
+    return _s64(w1) * t1 + _s64(w2) * t2 - big_q * s64(q)
+
+
 # ---------------------------------------------------------------------------
 # word-32 primitives on int32
 # ---------------------------------------------------------------------------
@@ -206,6 +263,17 @@ def shoup_mul32_q2(w, w_con, t, q: int):
     """Word-32 Shoup multiply; result < 2q for t < 2^32."""
     w = s32(w) if isinstance(w, int) else w
     return w * t - mulhi32(w_con, t) * s32(q)
+
+
+def shoup_dbl_mul32_q2(w1, c1, w2, c2, t1, t2, q: int):
+    """The fused pair at word 32 (``ntt_tpu.kernels.radix4._shoup_dbl32_q2``):
+    the quotient is bits 32..63 of c1*t1 + c2*t2, whose carry out of bit 64
+    no longer reaches Q*q mod 2^32."""
+    p = _u32_as_i64(c1) * _u32_as_i64(t1) + _u32_as_i64(c2) * _u32_as_i64(t2)
+    big_q = shr64(p, 32).to(torch.int32)
+    w1 = s32(w1) if isinstance(w1, int) else w1
+    w2 = s32(w2) if isinstance(w2, int) else w2
+    return w1 * t1 + w2 * t2 - big_q * s32(q)
 
 
 # ---------------------------------------------------------------------------

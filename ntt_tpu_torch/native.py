@@ -45,6 +45,9 @@ _INV_COLS = [_P, _P, _P, _P, _U64, _U64, _U64, _U64, _U64, _I, _I, _I, _I, _I, _
 _FWD_V2 = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _P]
 _FWD_V3 = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P]
 _TWIST = [_P, _P, _P, _P, _P, _P, _U64, _I, _I, _I, _P]
+_R2_STAGE = [_P, _P, _P, _P, _U64, _LL, _I, _I, _I, _I, _I, _LL, _I, _I, _I, _U64, _U64, _U64,
+             _U64, _I, _P]
+_R4_STAGE = [_P, _P, _P, _P, _U64, _LL, _I, _I, _I, _I, _I, _I, _LL, _I, _I, _U64, _U64, _P]
 _DIAG = [_P, _P, _I, _I, _P]
 _DIAG_MUL = [_P, _P, _U64, _I, _I, _I, _P]
 _DIAG_MATH = [_P, _P, _P, _P, _U64, _I, _I, _I, _P]
@@ -61,7 +64,9 @@ SIGNATURES = {
                       ("twist_mul", _TWIST),
                       ("fwd_fused_v2", _FWD_V2), ("fwd_fused_v3", _FWD_V3),
                       ("diag_copy", _DIAG), ("diag_mul", _DIAG_MUL),
-                      ("diag_math", _DIAG_MATH), ("diag_moves", _DIAG))},
+                      ("diag_math", _DIAG_MATH), ("diag_moves", _DIAG),
+                      ("r2_stage", _R2_STAGE), ("r4_stage", _R4_STAGE))},
+    "ntt_r4_stage_w56": _R4_STAGE,
 }
 
 

@@ -1,15 +1,17 @@
 """NttPlan: the twiddle tables of one (q, m) instance, on the host and on
 each device that asks for them.
 
-The counterpart of ``ntt_tpu/plan.py``, cut to the tables the fused
-transform reads: the bit-reversed root powers ``w`` / ``w_inv`` with
-their Shoup constants at word 64 (``w_con``, ``w_inv_con``) and word 32
-(``w_con32``, ``w_inv_con32``), the n^-1 constants, and the fused final
-stage's ``(f_tmp, f_con)`` (``ntt_tpu.kernels.radix2._final_mulop``),
-and for the two-level six-step its level plans and factored twist tables
-(``ntt_tpu.api._rec_level_plans`` / ``_rec_twist_reps``).  Host tables
-are numpy uint64 built by the port's ``twiddles``; device tables are
-int32 or int64 tensors of the plan's width, cached per device.
+The counterpart of ``ntt_tpu/plan.py``: the bit-reversed root powers
+``w`` / ``w_inv`` with their Shoup constants at word 64 (``w_con``,
+``w_inv_con``) and word 32 (``w_con32``, ``w_inv_con32``), the n^-1
+constants, the fused final stage's ``(f_tmp, f_con)``
+(``ntt_tpu.kernels.radix2._final_mulop``), for the two-level six-step its
+level plans and factored twist tables (``ntt_tpu.api._rec_level_plans``
+/ ``_rec_twist_reps``), and the expanded tables of the reference's
+variant families (``ntt_tpu/plan.py:68-190``; EXTRA_TABLES), each with
+its constants at the words its variants compute at.  Host tables are
+numpy uint64 built by the port's ``twiddles``, each at first use; device
+tables are int32 or int64 tensors, cached per device and width.
 """
 
 from __future__ import annotations
@@ -26,6 +28,19 @@ from ntt_tpu_torch.params import NttParams
 ARRAY_TABLES = ("w", "w_con", "w_inv", "w_inv_con", "w_con32", "w_inv_con32")
 SCALAR_TABLES = ("n_inv_con", "n_inv_con32")
 TABLE_NAMES = ARRAY_TABLES + SCALAR_TABLES
+# The expanded tables, by name, with their length in units of N; the JAX
+# plan has each under the same name (``w_r4_vec(False)`` / ``(True)`` for
+# ``w_r4_vec`` / ``w_r4_vec_unord``).
+EXTRA_TABLES = {
+    **{k: 2 for k in ("w_r4", "w_r4_con", "w_r4_con32", "w_r4_con56", "w_inv_r4",
+                      "w_inv_r4_con", "w_inv_r4_con32", "w_inv_r4_con56", "w_hexl",
+                      "w_hexl_con")},
+    "w_r2_16": 3, "w_r2_16_con": 3,
+    **{k: 5 for k in ("w_r4_vec", "w_r4_vec_con", "w_r4_vec_unord", "w_r4_vec_unord_con",
+                      "w_r4_vec_inv", "w_r4_vec_inv_con", "w_r4_vec_inv_unord",
+                      "w_r4_vec_inv_unord_con", "w_r4r2", "w_r4r2_con")},
+}
+EXTRA_SCALARS = ("n_inv_con56",)
 
 
 def final_mulop(n_inv_op: int, n_inv_con: int, w1: int, q: int, word: int):
@@ -41,11 +56,23 @@ def final_mulop(n_inv_op: int, n_inv_con: int, w1: int, q: int, word: int):
 class DeviceTables:
     """The plan's tables at its width, as tensors on one device: w, w_con,
     w_inv, w_inv_con, each built and copied at first use (a forward-only
-    caller never builds the inverse tables)."""
+    caller never builds the inverse tables); ``table`` gives any host
+    table at a chosen width."""
 
     def __init__(self, plan: "NttPlan", device: torch.device):
         self._plan, self._device = plan, device
         self._twist: dict[tuple[int, bool], tuple[torch.Tensor, ...]] = {}
+        self._tables: dict[tuple[str, int], torch.Tensor] = {}
+
+    def table(self, name: str, word: int) -> torch.Tensor:
+        """Host table ``name`` on this device: int32 (its low 32 bits) at
+        word 32, int64 at word 64 or 56, copied at first use."""
+        key = (name, 32 if word == 32 else 64)
+        if key not in self._tables:
+            host = np.asarray(getattr(self._plan, name), dtype=np.uint64)
+            rep = host.astype(np.uint32).view(np.int32) if word == 32 else host.view(np.int64)
+            self._tables[key] = torch.from_numpy(rep.copy()).to(self._device)
+        return self._tables[key]
 
     def _load(self, name: str) -> torch.Tensor:
         host = name + "32" if self._plan.word == 32 and name.endswith("_con") else name
@@ -107,6 +134,16 @@ class NttPlan:
             plan.__dict__[k] = arr  # takes the place of the cached_property
         for k in SCALAR_TABLES:
             plan.__dict__[k] = int(tables[k])
+        for k, units in EXTRA_TABLES.items():
+            if k in tables:
+                arr = np.asarray(tables[k], dtype=np.uint64)
+                if arr.shape != (units * params.n,):
+                    raise ValueError(f"table {k} has shape {arr.shape}, want "
+                                     f"({units * params.n},)")
+                plan.__dict__[k] = arr
+        for k in EXTRA_SCALARS:
+            if k in tables:
+                plan.__dict__[k] = int(tables[k])
         return plan
 
     # -- host tables (uint64 numpy), built on first use ---------------------
@@ -141,6 +178,121 @@ class NttPlan:
     @functools.cached_property
     def n_inv_con32(self) -> int:
         return tw.calc_ninv_con(self.params.n_inv, self.q, 32)
+
+    @functools.cached_property
+    def n_inv_con56(self) -> int:
+        return tw.calc_ninv_con(self.params.n_inv, self.q, 56)
+
+    # -- the expanded tables of the variant families (EXTRA_TABLES) --------
+    def _con(self, name: str, word: int) -> np.ndarray:
+        """calc_w_con of a table, computed up to its last nonzero entry
+        (the 5N layouts fill about a third of their length; con(0) = 0),
+        and for the 2N expand_w tables only on the odd slots: the even ones
+        hold w (or w_inv) itself."""
+        tab = getattr(self, name)
+        out = np.zeros_like(tab)
+        if name in ("w_r4", "w_inv_r4"):
+            base = "w" if name == "w_r4" else "w_inv"
+            out[0::2] = getattr(self, base + {64: "_con", 32: "_con32"}[word]) if word != 56 \
+                else tw.calc_w_con(getattr(self, base), self.q, 56)
+            out[1::2] = tw.calc_w_con(tab[1::2], self.q, word)
+            return out
+        end = len(tab) - int(np.argmax(tab[::-1] != 0)) if tab.any() else 0
+        out[:end] = tw.calc_w_con(tab[:end], self.q, word)
+        return out
+
+    @functools.cached_property
+    def w_r4(self) -> np.ndarray:
+        return tw.expand_w(self.w, self.q)
+
+    @functools.cached_property
+    def w_inv_r4(self) -> np.ndarray:
+        return tw.expand_w(self.w_inv, self.q)
+
+    @functools.cached_property
+    def w_r4_con(self) -> np.ndarray:
+        return self._con("w_r4", 64)
+
+    @functools.cached_property
+    def w_inv_r4_con(self) -> np.ndarray:
+        return self._con("w_inv_r4", 64)
+
+    @functools.cached_property
+    def w_r4_con32(self) -> np.ndarray:
+        return self._con("w_r4", 32)
+
+    @functools.cached_property
+    def w_inv_r4_con32(self) -> np.ndarray:
+        return self._con("w_inv_r4", 32)
+
+    @functools.cached_property
+    def w_r4_con56(self) -> np.ndarray:
+        return self._con("w_r4", 56)
+
+    @functools.cached_property
+    def w_inv_r4_con56(self) -> np.ndarray:
+        return self._con("w_inv_r4", 56)
+
+    @functools.cached_property
+    def w_hexl(self) -> np.ndarray:
+        return tw.expand_w_hexl(self.w)
+
+    @functools.cached_property
+    def w_hexl_con(self) -> np.ndarray:
+        """The layout of w_con: the layout only copies entries."""
+        return tw.expand_w_hexl(self.w_con)
+
+    @functools.cached_property
+    def w_r2_16(self) -> np.ndarray:
+        return tw.expand_w_r2_16(self.w)
+
+    @functools.cached_property
+    def w_r2_16_con(self) -> np.ndarray:
+        return tw.expand_w_r2_16(self.w_con)
+
+    @functools.cached_property
+    def w_r4_vec(self) -> np.ndarray:
+        return tw.expand_w_r4(self.w, self.q)
+
+    @functools.cached_property
+    def w_r4_vec_con(self) -> np.ndarray:
+        return self._con("w_r4_vec", 64)
+
+    @functools.cached_property
+    def w_r4_vec_inv(self) -> np.ndarray:
+        """The vector layout of the inverse root (the inverse of
+        'radix4-vec' walks its regions backwards)."""
+        return tw.expand_w_r4(self.w_inv, self.q)
+
+    @functools.cached_property
+    def w_r4_vec_inv_con(self) -> np.ndarray:
+        return self._con("w_r4_vec_inv", 64)
+
+    # the unordered tables (and their constants) permute the ordered ones'
+    # FWD1 lanes: entry for entry the same values
+    @functools.cached_property
+    def w_r4_vec_unord(self) -> np.ndarray:
+        return tw.unorder_r4(self.w_r4_vec, self.n)
+
+    @functools.cached_property
+    def w_r4_vec_unord_con(self) -> np.ndarray:
+        return tw.unorder_r4(self.w_r4_vec_con, self.n)
+
+    @functools.cached_property
+    def w_r4_vec_inv_unord(self) -> np.ndarray:
+        return tw.unorder_r4(self.w_r4_vec_inv, self.n)
+
+    @functools.cached_property
+    def w_r4_vec_inv_unord_con(self) -> np.ndarray:
+        return tw.unorder_r4(self.w_r4_vec_inv_con, self.n)
+
+    @functools.cached_property
+    def w_r4r2(self) -> np.ndarray:
+        return tw.expand_w_r4r2(self.w, self.q)
+
+    @functools.cached_property
+    def w_r4r2_con(self) -> np.ndarray:
+        return self._con("w_r4r2", 64)
 
     def host_tables(self) -> dict:
         """Every table by name (the ``from_numpy`` format)."""

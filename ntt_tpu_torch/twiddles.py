@@ -2,8 +2,11 @@
 
 The port's own copy of the tables it reads from ``ntt_tpu/twiddles.py``:
 the bit-reversed powers of the root and of its inverse, their Shoup
-constants at a given word size, the Shoup constant of n^-1, and the
-factored twist tables of the two-level six-step.  The
+constants at a given word size (64, 56 or 32), the Shoup constant of
+n^-1, the factored twist tables of the two-level six-step, and the
+expanded layouts of the reference's variant families (``expand_w``,
+``expand_w_hexl``, ``expand_w_r4``, ``expand_w_r4r2``,
+``expand_w_r2_16``).  The
 values are those of the JAX package's builders, computed exactly in
 vectorised uint64 arithmetic (the powers as a (sqrt N x sqrt N) grid of
 Shoup products, the Shoup constants in two 32-bit quotient digits), so a
@@ -12,6 +15,9 @@ table is numpy uint64.
 """
 
 from __future__ import annotations
+
+import concurrent.futures
+import os
 
 import numpy as np
 
@@ -39,13 +45,14 @@ def _mulhi64(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return a1 * b1 + (lh >> _U32) + (hl >> _U32) + carry
 
 
-def _quotient_digit(z: np.ndarray, q: int) -> tuple[np.ndarray, np.ndarray]:
-    """(floor(z * 2^32 / q), z * 2^32 mod q) for uint64 z < q < 2^62: a
-    float64 estimate, off by at most one, corrected by the exact remainder,
-    which lies in [-q, 2q) and so fits int64 (wrapping uint64 products)."""
+def _quotient_digit(z: np.ndarray, q: int, bits: int = 32) -> tuple[np.ndarray, np.ndarray]:
+    """(floor(z * 2^bits / q), z * 2^bits mod q) for uint64 z < q < 2^62 and
+    bits <= 32: a float64 estimate, off by at most one, corrected by the
+    exact remainder, which lies in [-q, 2q) and so fits int64 (wrapping
+    uint64 products)."""
     qu = np.uint64(q)
-    d = np.floor(z.astype(np.float64) * 2.0**32 / float(q)).astype(np.uint64)
-    r = ((z << _U32) - d * qu).view(np.int64)
+    d = np.floor(z.astype(np.float64) * 2.0**bits / float(q)).astype(np.uint64)
+    r = ((z << np.uint64(bits)) - d * qu).view(np.int64)
     low = r < 0
     d, r = np.where(low, d - np.uint64(1), d), np.where(low, r + np.int64(q), r)
     high = r >= np.int64(q)
@@ -83,19 +90,43 @@ def calc_w_inv(w_inv: int, n: int, q: int) -> np.ndarray:
     return calc_w(w_inv, n, q)
 
 
+def _con_digits(x: np.ndarray, q: int, word_size: int) -> np.ndarray:
+    hi, rem = _quotient_digit(x, q)
+    if word_size == 32:
+        return hi
+    lo_bits = word_size - 32
+    lo, _ = _quotient_digit(rem, q, lo_bits)
+    return (hi << np.uint64(lo_bits)) | lo
+
+
+PARALLEL_MIN = 1 << 20  # tables from this many entries are split over threads
+
+
 def calc_w_con(w_tab: np.ndarray, q: int, word_size: int = 64) -> np.ndarray:
     """Shoup constants floor(w_i * 2^word_size / q) of a table (word_size
-    64, or 32 for the word-32 path, where they fit 32 bits for q < 2^30);
-    entries below q < 2^62, the port's limit (the lazy butterflies keep
-    values below 4q < 2^64)."""
+    64; 56 for the word-56 radix-4 variant; 32 for the word-32 path, where
+    they fit 32 bits for q < 2^30); entries below q < 2^62, the port's
+    limit (the lazy butterflies keep values below 4q < 2^64).  A table of
+    PARALLEL_MIN entries or more is computed in slices on a thread each
+    (numpy lets go of the GIL in its loops): the 5N tables at N = 2^24."""
     if q >= Q_LIMIT:
         raise ValueError(f"q = {q:#x} is not below 2^62")
+    if word_size not in (32, 56, 64):
+        raise ValueError(f"word_size must be 32, 56 or 64, got {word_size}")
     x = np.asarray(w_tab, dtype=np.uint64)
-    hi, rem = _quotient_digit(x.ravel(), q)
-    if word_size == 32:
-        return hi.reshape(x.shape)
-    lo, _ = _quotient_digit(rem, q)
-    return ((hi << _U32) | lo).reshape(x.shape)
+    flat = x.ravel()
+    threads = min(os.cpu_count() or 1, flat.size // (PARALLEL_MIN // 4))
+    if flat.size < PARALLEL_MIN or threads < 2:
+        return _con_digits(flat, q, word_size).reshape(x.shape)
+    out = np.empty_like(flat)
+    bounds = np.linspace(0, flat.size, threads + 1).astype(np.int64)
+
+    def part(i: int) -> None:
+        out[bounds[i]:bounds[i + 1]] = _con_digits(flat[bounds[i]:bounds[i + 1]], q, word_size)
+
+    with concurrent.futures.ThreadPoolExecutor(threads) as pool:
+        list(pool.map(part, range(threads)))
+    return out.reshape(x.shape)
 
 
 def calc_ninv_con(n_inv: int, q: int, word_size: int = 64) -> int:
@@ -136,3 +167,232 @@ def twist_tables_rec(psi: int, q: int, n: int, l1_log: int):
     gamma = np.array([pow(psi, int(e), q) for e in exps], dtype=np.uint64)
     gamma_lo = np.array([pow(psi, int(e) * lo % (2 * n), q) for e in exps], dtype=np.uint64)
     return _power_rows(gamma_lo, hi, q), _power_rows(gamma, lo, q)
+
+
+# ---------------------------------------------------------------------------
+# Expanded layouts of the reference's variant families
+# (``ntt_tpu/twiddles.py:76-327``), in vectorised uint64 arithmetic: each
+# loop of the JAX builders over table entries becomes one gather of index
+# arrays, so the entries (and any entry a small N makes them read out of
+# range) are the same.
+# ---------------------------------------------------------------------------
+
+# The canonical emission orders of the SIMD layouts: permute_w's 8-lane
+# shuffle, and the FwdT2 order of each group of 4 (each entry twice).
+LANE_PERM = np.array([0, 4, 1, 5, 2, 6, 3, 7])
+T2_GROUP_ORDER = np.array([0, 2, 1, 3])
+
+
+def mul_mod(a: np.ndarray, b: np.ndarray, q: int) -> np.ndarray:
+    """(a * b) mod q element-wise for uint64 a, b < q < 2^62: a Shoup
+    product with a's exact constant, then one conditional subtract."""
+    a = np.asarray(a, dtype=np.uint64)
+    b = np.asarray(b, dtype=np.uint64)
+    qu = np.uint64(q)
+    r = a * b - _mulhi64(calc_w_con(a, q, 64), b) * qu  # in [0, 2q)
+    return np.where(r >= qu, r - qu, r)
+
+
+def expand_w(w_tab: np.ndarray, q: int) -> np.ndarray:
+    """The radix-4 table of 2N entries (``ntt_tpu.twiddles.expand_w``):
+    slot 2i holds w[i]; from i = 2 on, slot 4k + 1 holds w[k] * w[2k] and
+    slot 4k + 3 holds q - w[k] * w[2k + 1] (mod q); slots 1 and 3 are 0."""
+    w = np.asarray(w_tab, dtype=np.uint64)
+    n = w.shape[0]
+    out = np.zeros(2 * n, dtype=np.uint64)
+    out[0::2] = w
+    k = np.arange(1, n // 2)
+    out[4 * k + 1] = mul_mod(w[k], w[2 * k], q)
+    out[4 * k + 3] = np.uint64(q) - mul_mod(w[k], w[2 * k + 1], q)
+    return out
+
+
+def expand_w_hexl(w_tab: np.ndarray) -> np.ndarray:
+    """The HEXL layout, 13N/8 entries of a 2N table
+    (``ntt_tpu.twiddles.expand_w_hexl``): [0, N/8) as it is, [N/8, N/4)
+    each entry 4 times, [N/4, N/2) each twice, [N/2, N) as it is."""
+    w = np.asarray(w_tab, dtype=np.uint64)
+    n = w.shape[0]
+    out = np.zeros(2 * n, dtype=np.uint64)
+    idx = 0
+    out[idx : idx + n // 8] = w[: n // 8]
+    idx += n // 8
+    out[idx : idx + n // 2] = np.repeat(w[n // 8 : n // 4], 4)
+    idx += n // 2
+    out[idx : idx + n // 2] = np.repeat(w[n // 4 : n // 2], 2)
+    idx += n // 2
+    out[idx : idx + n // 2] = w[n // 2 :]
+    return out
+
+
+def _quintuples(w: np.ndarray, heads: np.ndarray, q: int) -> np.ndarray:
+    """(len(heads), 5): the five twiddles {w1, w2, w1 w2, w3, -(w1 w3)} of
+    each head index (``ntt_tpu.twiddles._quintuple``)."""
+    w1, w2, w3 = w[heads], w[2 * heads], w[2 * heads + 1]
+    return np.stack([w1, w2, mul_mod(w1, w2, q), w3,
+                     np.uint64(q) - mul_mod(w1, w3, q)], axis=1)
+
+
+def _quintuple_runs(w: np.ndarray, out: np.ndarray, q: int, new_idx: int, w_idx: int,
+                    m: int, limit: int) -> tuple[int, int, int]:
+    """The flat quintuple runs of the radix-4 layouts: while the head index
+    w_idx (= m) is below limit, the m quintuples of heads [m, 2m), then
+    m *= 4.  Returns (new_idx, w_idx, m) after the last run."""
+    while w_idx < limit:
+        run = _quintuples(w, np.arange(w_idx, w_idx + m), q)
+        out[new_idx : new_idx + 5 * m] = run.reshape(-1)
+        new_idx += 5 * m
+        w_idx = 4 * m
+        m <<= 2
+    return new_idx, w_idx, m
+
+
+def r4_vec_regions(n: int) -> dict[int, tuple[int, int]]:
+    """The radix-4 stages of the vector layout, m -> (L, offset): stage m
+    (m groups) reads its quintuples at ``offset`` of ``expand_w_r4``, in
+    blocks of 2^L groups (L = 0 in FWD8, 1 in FWD4, 3 in FWD1); the
+    region map of ``ntt_tpu.kernels.radix4._r4_vec_offsets`` (n >= 256)."""
+    if (n.bit_length() - 1) % 2 == 0:
+        idx, m = 1, 1
+    else:
+        idx, m = 2, 2  # entry 1: the leading radix-2 twiddle
+    out = {}
+    while m < (n >> 5):
+        out[m] = (0, idx)
+        idx += 5 * m
+        m <<= 2
+    out[m] = (1, idx)
+    idx = (((idx + 5 * m) >> 3) << 3) + 8
+    out[m << 2] = (3, idx)
+    return out
+
+
+def unorder_r4(tab: np.ndarray, n: int) -> np.ndarray:
+    """An ordered ``expand_w_r4`` table (or its Shoup constants) turned into
+    the unordered one: the FWD1 region's lanes in LANE_PERM order."""
+    m, (_, idx) = max(r4_vec_regions(n).items())
+    out = np.array(tab, dtype=np.uint64)
+    region = out[idx : idx + 5 * m].reshape(m // 8, 5, 8)
+    out[idx : idx + 5 * m] = region[:, :, LANE_PERM].reshape(-1)
+    return out
+
+
+def expand_w_r4(w_tab: np.ndarray, q: int, unordered: bool = False) -> np.ndarray:
+    """The vector radix-4 table, 5N entries (``ntt_tpu.twiddles.expand_w_r4``):
+    for odd log2 N the leading radix-2 twiddle w[1] at entry 1; the FWD8
+    region (one quintuple a group while the head index is below N/32); the
+    FWD4 region (heads N/16 to N/8 in pairs, 10 entries a pair, the pair's
+    entries interleaved); then, from the next multiple of 8, the FWD1
+    region (heads N/4 to N/2, 8 at a time as five 8-lane vectors, lanes in
+    LANE_PERM order when unordered)."""
+    w = np.asarray(w_tab, dtype=np.uint64)
+    n = w.shape[0]
+    out = np.zeros(5 * n, dtype=np.uint64)
+    if (n.bit_length() - 1) % 2 == 0:
+        new_idx, w_idx, m = 1, 1, 1
+    else:
+        out[1] = w[1]
+        new_idx, w_idx, m = 2, 2, 2
+    new_idx, _, _ = _quintuple_runs(w, out, q, new_idx, w_idx, m, n >> 5)
+    heads = np.arange(n >> 4, n >> 3, 2)
+    a, b = _quintuples(w, heads, q), _quintuples(w, heads + 1, q)
+    pairs = np.stack([a, b], axis=2)  # (pairs, 5, 2): the 10 entries of a pair
+    out[new_idx : new_idx + pairs.size] = pairs.reshape(-1)
+    new_idx += pairs.size
+    new_idx = ((new_idx >> 3) << 3) + 8
+    heads = np.arange(n >> 2, n >> 1, 8)
+    blocks = _quintuples(w, (heads[:, None] + np.arange(8)).reshape(-1), q)
+    blocks = blocks.reshape(len(heads), 8, 5).transpose(0, 2, 1)  # (blocks, 5, 8 lanes)
+    if unordered:
+        blocks = blocks[:, :, LANE_PERM]
+    out[new_idx : new_idx + blocks.size] = blocks.reshape(-1)
+    return out
+
+
+def r4r2_regions(n: int) -> tuple[dict[int, int], list[tuple[str, int, int]]]:
+    """The stages of the r4r2 layout (``ntt_tpu.kernels.mixed._r4r2_offsets``,
+    n >= 128): {m: offset} of the radix-4 stages' flat quintuple runs, and
+    the radix-2 tail's (kind, m, offset) in order: "r2" (even log2 N only,
+    as it is), "r2x4" (each entry 4 times), "r2t2" (FwdT2 order), "r2t1"
+    (FwdT1 order)."""
+    idx, m, r4 = 1, 1, {}
+    while m < (n >> 4):
+        r4[m] = idx
+        idx += 5 * m
+        m <<= 2
+    idx = ((idx >> 3) << 3) + 8
+    tail = []
+    if (n.bit_length() - 1) % 2 == 0:
+        tail.append(("r2", n >> 4, idx))
+        idx += n >> 4
+    tail.append(("r2x4", n >> 3, idx))
+    idx += 4 * (n >> 3)
+    tail.append(("r2t2", n >> 2, idx))
+    idx += n >> 1
+    tail.append(("r2t1", n >> 1, idx))
+    return r4, tail
+
+
+def _t2_entries(w: np.ndarray, t: int) -> np.ndarray:
+    """The FwdT2 segment: for each group of 4 from w[t], the entries in
+    T2_GROUP_ORDER, each twice."""
+    i = np.arange(0, t, 4)
+    return np.repeat(w[t + i[:, None] + T2_GROUP_ORDER].reshape(-1), 2)
+
+
+def _t1_entries(w: np.ndarray, t: int) -> np.ndarray:
+    """The FwdT1 segment: w[t:] in blocks of 8, each in LANE_PERM order."""
+    i = np.arange(0, t, 8)
+    return w[t + i[:, None] + LANE_PERM].reshape(-1)
+
+
+def expand_w_r4r2(w_tab: np.ndarray, q: int) -> np.ndarray:
+    """The r4r2 table, 5N entries (``ntt_tpu.twiddles.expand_w_r4r2``):
+    flat quintuple runs while the head index is below N/16, then from the
+    next multiple of 8 the radix-2 tail: for even log2 N the N/16 entries
+    of the t = 8 stage as they are, the t = 4 stage's entries each 4 times,
+    the t = 2 stage's in the FwdT2 order, the t = 1 stage's in the FwdT1
+    order."""
+    w = np.asarray(w_tab, dtype=np.uint64)
+    n = w.shape[0]
+    out = np.zeros(5 * n, dtype=np.uint64)
+    t = n >> 4
+    new_idx, w_idx, _ = _quintuple_runs(w, out, q, 1, 1, 1, t)
+    new_idx = ((new_idx >> 3) << 3) + 8
+    if (n.bit_length() - 1) % 2 == 0:
+        out[new_idx : new_idx + t] = w[w_idx : w_idx + t]
+        new_idx += t
+    t <<= 1
+    out[new_idx : new_idx + 4 * t] = np.repeat(w[t : 2 * t], 4)
+    new_idx += 4 * t
+    t <<= 1
+    seg = _t2_entries(w, t)
+    out[new_idx : new_idx + seg.size] = seg
+    new_idx += seg.size
+    t <<= 1
+    seg = _t1_entries(w, t)
+    out[new_idx : new_idx + seg.size] = seg
+    return out
+
+
+def expand_w_r2_16(w_tab: np.ndarray) -> np.ndarray:
+    """The r2_16 table, 3N entries (``ntt_tpu.twiddles.expand_w_r2_16``):
+    [0, N/8) as it is, then the t = 4 stage's entries each 4 times, the
+    t = 2 stage's in the FwdT2 order and the t = 1 stage's in the FwdT1
+    order."""
+    w = np.asarray(w_tab, dtype=np.uint64)
+    n = w.shape[0]
+    out = np.zeros(3 * n, dtype=np.uint64)
+    t = n >> 3
+    out[:t] = w[:t]
+    new_idx = t
+    out[new_idx : new_idx + 4 * t] = np.repeat(w[t : 2 * t], 4)
+    new_idx += 4 * t
+    t <<= 1
+    seg = _t2_entries(w, t)
+    out[new_idx : new_idx + seg.size] = seg
+    new_idx += seg.size
+    t <<= 1
+    seg = _t1_entries(w, t)
+    out[new_idx : new_idx + seg.size] = seg
+    return out
