@@ -93,7 +93,25 @@ Phases, each of which raises on failure (nothing is caught):
    HE product of each variant at m14 batch 1024 at its widest q
    (FAMILY_HE) equal to 'auto''s; all five K9 / K10 entry points and K1 /
    K2 (radix4x4) must have been launched;
-15. times: warm-up, minimum over repetitions, kernel and plain version in
+15. K11 vs plain: ``kernels.mxu.limb_matmul`` in both contracts, with and
+   without the fused scale, against ``limb_matmul_plain`` on the same CUDA
+   tensors, bit for bit, at every m from 1 to 20 (batch 2^(20 - m), the
+   balanced split) and at m24 batch 1, at q = 0xfff0001 (FIXTURES[8], the
+   widest 28-bit fixture q) and q = 0x10001, on limb matrices over the
+   whole range 0..127;
+16. the mxu slice's main path: with every launch count set to 0,
+   ``fwd_ntt`` / ``inv_ntt`` through 'mxu' at the same m (batch 3, 1 at
+   m24; q = 0xfff0001 up to m15, the largest 28-bit NTT prime of N beyond)
+   and ``negacyclic_mul(variant="mxu")`` at m14 batch 1024: strict and lazy
+   forwards equal to 'auto''s, round trips exact, the product equal to
+   'auto''s and to the schoolbook product at sampled coefficients; both
+   K11 contracts and K3 must have been launched;
+17. the CLI on the card: ``python -m ntt_tpu_torch list`` names the
+   registry, and with every launch count set to 0 ``correctness --full
+   --device cuda`` in-process runs every variant on the 19 reference
+   fixtures: every line OK or SKIP (pallas-fused beyond one block),
+   ``FAILURES: 0``, and every kernel of the API but K3 launched;
+18. times: warm-up, minimum over repetitions, kernel and plain version in
    turns, beside the card's name and power limit; each kernel's bound, the
    larger of its bytes over the memory rate and its integer multiplies
    over the multiply rate.  Every kernel is timed as the lab times it (a
@@ -116,7 +134,14 @@ Phases, each of which raises on failure (nothing is caught):
    batch 1024 beside K1's and 'auto''s (CUDA graph), K9 / K10 a stage
    beside their bounds (plain versions at batch 32), and 'radix2' /
    'radix4-u32' against 'pallas-fused' at m6-m8, batch 128 and 1024, in a
-   graph and in a stream of 20 calls.
+   graph and in a stream of 20 calls; K11 a launch of each contract (the
+   forward's and the inverse's first pass, scaled) at m14 batch 1024, m16
+   batch 128 and m20 batch 16 beside its bound (the largest of bytes over
+   the memory rate, 32-bit multiplies over theirs and int8 tensor-core
+   operations over the dense int8 rate) and its plain version, with
+   ``torch._int_mm``'s four calls on the same int8 operands as a yardstick
+   of the tensor-core part alone, and the mxu forward, inverse and product
+   beside K1 (word 32, m14) and 'auto'.
 
 Every phase line is followed by the wall clock the phase took, and the
 times phase ends with the wall clock of every phase.
@@ -130,8 +155,12 @@ repository.
 from __future__ import annotations
 
 import argparse
+import collections
+import contextlib
+import io
 import json
 import pathlib
+import re
 import sys
 import time
 
@@ -180,6 +209,16 @@ FAMILY_SMALL_M = (6, 7, 8)  # radix2 and radix4-u32 against pallas-fused, for 'a
 FAMILY_SMALL_BATCHES = (128, 1024)
 STAGE_KERNELS = ("r2_stage_u32", "r2_stage_u64", "r4_stage_u32", "r4_stage_u64",
                  "r4_stage_w56")
+# The mxu slice: K11 against its plain version at every m from 1 to MXU_LAST_M
+# (batch 2^(MXU_WORDS_LOG - m)) and at m24 batch 1, at the widest 28-bit
+# fixture q (FIXTURES[8]) and at a 17-bit one; the variant through the API at
+# the same m (batch 3, 1 at m24); its product, and the times, at these
+# (m, batch): q = 0xfff0001 where 2N divides q - 1 (m <= 15), the largest
+# 28-bit NTT prime of N beyond.
+MXU_QS = (0xFFF0001, 0x10001)
+MXU_LAST_M, MXU_WORDS_LOG = 20, 20
+MXU_TIMED = ((14, BATCH_HE), (16, 128), (20, 16))
+LIMB_KERNELS = ("limb_matmul_left", "limb_matmul_right")
 CSRC = "ntt_tpu_torch/csrc/"
 LAB = "tools/pallas_lab.py:"
 LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
@@ -190,6 +229,7 @@ SOURCES = {"fwd_fused": CSRC + "ntt_fused.cu", "inv_fused": CSRC + "ntt_fused.cu
            "fwd_rows": CSRC + "ntt_sixstep.cu", "inv_rows": CSRC + "ntt_sixstep.cu",
            "inv_cols": CSRC + "ntt_sixstep.cu", "twist_mul": CSRC + "twist.cu",
            "r2_stage": CSRC + "r2_stage.cu", "r4_stage": CSRC + "r4_stage.cu",
+           "limb_matmul": CSRC + "mxu.cu",
            **{k: CSRC + "ntt_lab.cu" for k in LAB_TRANSFORMS},
            **{k: CSRC + "probes.cu" for k in PROBES}}
 REPLACES = {"fwd_fused": "ntt_tpu/kernels/pallas_fused.py:230",
@@ -202,6 +242,7 @@ REPLACES = {"fwd_fused": "ntt_tpu/kernels/pallas_fused.py:230",
             "twist_mul": "ntt_tpu/kernels/sixstep.py:465",
             "r2_stage": "ntt_tpu/kernels/radix2.py:65",
             "r4_stage": "ntt_tpu/kernels/radix4.py:95",
+            "limb_matmul": "ntt_tpu/kernels/mxu.py:120",
             "fwd_fused_v2_r2": LAB + "127", "fwd_fused_v2_r4": LAB + "127",
             "fwd_fused_v3": LAB + "326", "diag_copy": LAB + "444", "diag_mul": LAB + "402",
             "diag_math": LAB + "455", "diag_moves": LAB + "479"}
@@ -211,12 +252,16 @@ REPLACES = {"fwd_fused": "ntt_tpu/kernels/pallas_fused.py:230",
 # C++ Programming Guide, arithmetic instruction throughput): 67e12 / 4.
 HBM_BYTES_PER_S = 3.35e12
 INT_MULS_PER_S = 67e12 / 4
+INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations (the same data sheet)
 # 32-bit multiplies of one Shoup product (hi(w_con*t), w*t, Q*q): one each at
 # word 32; at word 64 a 64x64 high half takes four partial products and each
 # low half three.  mul_mod: the full product, then folds (pointwise.cu).
 SHOUP_MULS = {32: 3, 64: 10}
 MUL_MOD_MULS = {32: 6, 64: 34}
 N_MULTS = 42  # the multiplies of diag_mul on each 32-bit half (probes.N_MULTS)
+# K11's epilogue a word: six Shoup products of the Horner chain, Barrett's two
+# multiplies, the Shoup product by the scale
+LIMB_EPILOGUE_MULS = 6 * SHOUP_MULS[32] + 2 + SHOUP_MULS[32]
 
 
 def every_m_batch(m: int) -> int:
@@ -236,7 +281,13 @@ def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int):
     N / 2^(lt+1) groups and does one Shoup product a butterfly; r4_stage
     reads five pairs a group of its N / 2^(lt+2) groups and does one Shoup
     product and two dual ones (each as many multiplies as two products) a
-    group of four words."""
+    group of four words.  limb_matmul (n1_log: log2 K of its contract, K11
+    with the scale, as in each transform's first pass) reads and writes each
+    word once, reads its K x K limb matrix (4 bytes an entry) and the
+    (N1, N2) scale with its constants (8 bytes an entry), does 32 K int8
+    tensor-core operations a word (16 limb products of a K-deep dot product,
+    2 operations a term) and the epilogue's 32-bit multiplies; its entry is
+    (bytes, multiplies, int8 operations)."""
     n, size = 1 << m, word // 8
     data = 2 * batch * n * size
     bfly = batch * n // 2 * SHOUP_MULS[word]  # one stage
@@ -262,12 +313,17 @@ def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int):
         "r2_stage": (data + 2 * (n >> (n1_log + 1)) * size, bfly),
         "r4_stage": (data + 10 * (n >> (n1_log + 2)) * size,
                      batch * n // 4 * 5 * SHOUP_MULS[word]),
+        "limb_matmul": (data + 4 * n1 * n1 + 8 * n, batch * n * LIMB_EPILOGUE_MULS,
+                        32 * n1 * batch * n),
     }[kernel]
 
 
-def bound(nbytes: int, muls: int) -> tuple[float, str]:
-    """(ms, what bounds it): the least time the card could take."""
-    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, muls / INT_MULS_PER_S * 1e3
+def bound(nbytes: int, muls: int, int8_ops: int = 0) -> tuple[float, str]:
+    """(ms, what bounds it): the least time the card could take, the
+    largest of the bytes over the memory rate, the 32-bit multiplies over
+    their rate and the int8 tensor-core operations over theirs."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = max(muls / INT_MULS_PER_S, int8_ops / INT8_OPS_PER_S) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -358,6 +414,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    seed = args.seed
 
     import numpy as np
     import torch
@@ -373,9 +430,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from ntt_tpu_torch import FIXTURES, NttParams, api, bench_params, lab, native, rns
+    from ntt_tpu_torch import __main__ as cli
     from ntt_tpu_torch import modmath as mm
-    from ntt_tpu_torch.kernels import (fused, fused_lab, pointwise, probes, radix2, radix4, rec,
-                                       sixstep, twopass)
+    from ntt_tpu_torch.kernels import (fused, fused_lab, mxu, pointwise, probes, radix2, radix4,
+                                       rec, sixstep, twopass)
     from ntt_tpu_torch.kernels.elems import pick_ops
     from ntt_tpu_torch.plan import get_plan
 
@@ -1074,6 +1132,110 @@ def main() -> int:
     del want5
 
 
+    def mxu_params(m):
+        """The mxu slice's q at m: 0xfff0001 where 2N divides q - 1, the
+        largest 28-bit NTT prime of N beyond."""
+        return NttParams.make(MXU_QS[0], m) if m <= 15 else NttParams.generate(28, m)
+
+    mxu_sizes = [(m, 1 << (MXU_WORDS_LOG - m)) for m in range(1, MXU_LAST_M + 1)] + [(24, 1)]
+    phase(f"K11 limb_matmul vs plain: both contracts, with and without the scale, at every m "
+          f"from 1 to {MXU_LAST_M} (batch 2^({MXU_WORDS_LOG} - m)) and m24 batch 1, q "
+          + " and ".join(f"{q:#x}" for q in MXU_QS))
+    for q in MXU_QS:
+        for m, batch in mxu_sizes:
+            n1, n2 = 1 << m // 2, 1 << (m - m // 2)
+            x = torch.randint(0, q, (batch, n1, n2), generator=gen, device=dev, dtype=torch.int32)
+            s_tab = torch.randint(0, q, (n1, n2), generator=gen, device=dev, dtype=torch.int32)
+            s_con = ((s_tab.to(torch.int64) << 32) // q).to(torch.int32)
+            for contract, k in (("left", n1), ("right", n2)):
+                # limbs over their whole range 0..127: the diagonals' largest sums
+                mat = torch.randint(0, 128, (4, k, k), generator=gen, device=dev,
+                                    dtype=torch.int8)
+                for scale in (None, (s_tab, s_con)):
+                    note(f"limb_matmul_{contract}", mxu.limb_matmul(mat, x, q, contract, scale),
+                         mxu.limb_matmul_plain(mat, x, q, contract, scale),
+                         f"q {q:#x} m{m} b{batch} K11 {contract}"
+                         f"{' scaled' if scale else ''}", quiet=True)
+            del x, s_tab, s_con
+        torch.cuda.synchronize()
+        print(f"  q {q:#x}: K11 left and right, with and without the scale, equal to plain "
+              f"at m1-m{MXU_LAST_M} (2^{MXU_WORDS_LOG} words) and m24 b1", flush=True)
+    torch.cuda.empty_cache()
+
+    phase(f"main path of the mxu slice: fwd_ntt / inv_ntt through 'mxu' at every m from 1 to "
+          f"{MXU_LAST_M} and m24 (batch {BATCH_EVERY_M}, 1 from m{LARGE_M}), and negacyclic_mul "
+          f"at m14 batch {BATCH_HE}, against 'auto'")
+    mx_params = {m: mxu_params(m) for m, _ in mxu_sizes}
+    mx_in = {m: rand_dev(p, every_m_batch(m)) for m, p in mx_params.items()}
+    mp14 = mx_params[14]
+    he6 = (rand_dev(mp14, BATCH_HE), rand_dev(mp14, BATCH_HE))
+    for m, p in mx_params.items():  # the host tables: set-up, outside the counted path
+        get_plan(p).device_tables(dev).mxu(False)
+        get_plan(p).device_tables(dev).mxu(True)
+    torch.cuda.synchronize()
+    mxu_counts = (mxu.LAUNCHES, pointwise.LAUNCHES)
+    for counts in mxu_counts:
+        for k in counts:
+            counts[k] = 0
+    fwd6 = {m: api.fwd_ntt(x, mx_params[m], "mxu") for m, x in mx_in.items()}
+    lazy6 = {m: api.fwd_ntt(x, mx_params[m], "mxu", lazy=True) for m, x in mx_in.items()}
+    back6 = {m: api.inv_ntt(f, mx_params[m], "mxu") for m, f in fwd6.items()}
+    prod6 = api.negacyclic_mul(*he6, mp14, variant="mxu")
+    torch.cuda.synchronize()
+    launches6 = {k: v for c in mxu_counts for k, v in c.items()}
+    print(f"  launch counts of this path: {launches6}", flush=True)
+    idle = [k for k in LIMB_KERNELS + ("mul_mod_u32",) if launches6[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched by the mxu slice's path: {idle}")
+    for m, x in mx_in.items():
+        p = mx_params[m]
+        if not torch.equal(fwd6[m], api.fwd_ntt(x, p)) or not torch.equal(lazy6[m], fwd6[m]):
+            raise AssertionError(f"mxu m{m}: the forward (strict or lazy) differs from 'auto''s")
+        if not torch.equal(back6[m], x):
+            raise AssertionError(f"mxu m{m}: inv_ntt(fwd_ntt(a)) != a")
+    if not torch.equal(prod6, api.negacyclic_mul(*he6, mp14)):
+        raise AssertionError("mxu m14: negacyclic_mul differs from 'auto''s")
+    ks = check_product_rows(mp14, *he6, prod6, "mxu m14")
+    print(f"  mxu at m1-m{MXU_LAST_M} and m24 (q {mx_params[1].q:#x} to m15, the largest 28-bit "
+          f"NTT prime beyond): forward (strict, lazy) equal to 'auto''s, round trip exact; "
+          f"negacyclic_mul {tuple(prod6.shape)} q {mp14.q:#x} equal to 'auto''s and, at "
+          f"coefficients {ks} of two rows, the schoolbook product", flush=True)
+    del fwd6, lazy6, back6, prod6, mx_in
+    torch.cuda.empty_cache()
+
+    phase("the CLI on the card: python -m ntt_tpu_torch list, and correctness --full "
+          "--device cuda in-process, every launch count set to 0 before it")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["list"])
+    listed = [line.split()[0] for line in buf.getvalue().splitlines()[1:]]
+    if rc != 0 or listed != sorted(api.variants()):
+        raise AssertionError(f"list printed {listed}, the registry has {sorted(api.variants())}")
+    print(f"  list: {len(listed)} variants, the registry's", flush=True)
+    cli_counts = (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES, rec.LAUNCHES,
+                  radix2.LAUNCHES, radix4.LAUNCHES, mxu.LAUNCHES)
+    torch.cuda.synchronize()
+    for counts in cli_counts:
+        for k in counts:
+            counts[k] = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["correctness", "--full", "--device", "cuda", "--seed", str(seed)])
+    torch.cuda.synchronize()
+    lines = buf.getvalue().splitlines()
+    rows = [re.match(r"q=0x[0-9a-f]+ m=\s*\d+ (\S+)\s+(\S+)", ln) for ln in lines[:-1]]
+    tally = collections.Counter(r.group(2) if r else "UNPARSED" for r in rows)
+    if rc != 0 or lines[-1] != "FAILURES: 0" or set(tally) - {"OK", "SKIP"}:
+        print("\n".join(ln for ln in lines if " OK " not in ln), flush=True)
+        raise AssertionError(f"correctness --full --device cuda: exit {rc}, {dict(tally)}")
+    launches7 = {k: v for c in cli_counts for k, v in c.items()}
+    print(f"  correctness --full --device cuda: {dict(tally)} over the 19 fixtures "
+          f"({', '.join(sorted({r.group(1) for r in rows if r.group(2) == 'SKIP'}))} refused "
+          f"beyond one block), {lines[-1]}; launch counts {launches7}", flush=True)
+    idle = [k for k, v in launches7.items() if v == 0 and not k.startswith("mul_mod")]
+    if idle:
+        raise AssertionError(f"kernels never launched by the CLI's sweep: {idle}")
+
     phase(f"times (kernels from a CUDA graph of launches, plain versions and API calls "
           f"between CUDA events; min over reps; {smi})")
     table = []
@@ -1393,6 +1555,67 @@ def main() -> int:
     print(f"  small-m forwards for 'auto': {json.dumps(small_rows)}", flush=True)
     del he5, stage_cases
     torch.cuda.empty_cache()
+
+    # the mxu slice (q = 0xfff0001 at m14, the largest 28-bit NTT prime of N at
+    # m16 / m20): K11 a launch of each contract as a transform's first pass
+    # runs it (left: the forward's, scaled by T; right: the inverse's, scaled
+    # by S) from a CUDA graph beside its bound, its plain version between CUDA
+    # events, and torch._int_mm's four calls on the same int8 operands (the 16
+    # limb products on the limbs concatenated as JAX batches them) as a
+    # yardstick of the tensor-core part alone, never called by the port; the
+    # mxu forward, inverse and product beside K1 (word 32, where it serves)
+    # and 'auto', one API call's device time from a CUDA graph
+    def int_mm_ms(mat, x, contract):
+        limbs = [((x >> (7 * s)) & 127).to(torch.int8) for s in range(4)]
+        if contract == "left":  # (K, K) @ (K, 4 F) of every polynomial, side by side
+            rhs = torch.cat(limbs, dim=-1).transpose(0, 1).reshape(x.shape[1], -1).contiguous()
+            calls = [(mat[s].contiguous(), rhs) for s in range(4)]
+        else:  # (4 N1 of every polynomial, K) @ (K, K)^T
+            lhs = torch.cat(limbs, dim=-2).reshape(-1, x.shape[-1]).contiguous()
+            calls = [(lhs, mat[s].t().contiguous()) for s in range(4)]
+        return lab.cuda_us(lambda _: [torch._int_mm(a, b) for a, b in calls], None, 3, 5) / 1e3
+
+    mxu_rows = []
+    for m, batch in MXU_TIMED:
+        p = mxu_params(m)
+        plan = get_plan(p)
+        x, y = rand_dev(p, batch), rand_dev(p, batch)
+        f = api.fwd_ntt(x, p, "mxu")
+        ft, it = plan.device_tables(dev).mxu(False), plan.device_tables(dev).mxu(True)
+        n1, n2 = 1 << ft["n1_log"], p.n >> ft["n1_log"]
+        passes = {"left": (ft["m1"], x.view(batch, n1, n2), (ft["t"], ft["t_con"]), n1),
+                  "right": (it["w2i"], f.view(batch, n1, n2), (it["s"], it["s_con"]), n2)}
+        row = {"m": m, "batch": batch, "q": hex(p.q)}
+        for contract, (mat, arg, scale, k) in passes.items():
+            k_ms, p_ms = kernel_in_turns(
+                torch, lab, lambda: mxu.limb_matmul(mat, arg, p.q, contract, scale),
+                lambda: mxu.limb_matmul_plain(mat, arg, p.q, contract, scale), 2)
+            entry(f"limb_matmul_{contract}", launches6[f"limb_matmul_{contract}"], k_ms, p_ms, m,
+                  k.bit_length() - 1, batch, 32, f"m{m} batch {batch}, scaled", record=m == 14)
+            row[f"k11_{contract}_us"] = k_ms * 1e3
+            row[f"int_mm_{contract}_us"] = int_mm_ms(mat, arg, contract) * 1e3
+        print(f"  m{m} batch {batch}: torch._int_mm, 4 calls on K11's int8 operands (the "
+              f"tensor-core part alone): left {row['int_mm_left_us']:.1f} us, right "
+              f"{row['int_mm_right_us']:.1f} us", flush=True)
+        for d, fn, arg in (("fwd", lambda t, v: api.fwd_ntt(t, p, v), x),
+                           ("inv", lambda t, v: api.inv_ntt(t, p, v), f)):
+            for v in ("mxu", "auto"):
+                row[f"{v}_{d}_us"] = lab.cuda_us(lambda t: fn(t, v), arg, 3, 5)
+        for v in ("mxu", "auto"):
+            row[f"{v}_product_us"] = lab.cuda_us(
+                lambda _: api.negacyclic_mul(x, y, p, variant=v), None, 3, 3)
+        if m <= fused.max_logn(32):
+            row["k1_fwd_us"] = lab.cuda_us(lambda t: fused.fwd_fused(t, plan), x, 3, 5)
+        mxu_rows.append(row)
+        print(f"  mxu m{m} batch {batch} q {p.q:#x}: forward {row['mxu_fwd_us']:.1f} us ('auto' "
+              f"{row['auto_fwd_us']:.1f}" + (f", K1 {row['k1_fwd_us']:.1f}" if "k1_fwd_us" in row
+                                             else "") + f"), inverse {row['mxu_inv_us']:.1f} "
+              f"('auto' {row['auto_inv_us']:.1f}), product {row['mxu_product_us']:.1f} ('auto' "
+              f"{row['auto_product_us']:.1f}); mxu / auto forward "
+              f"{row['mxu_fwd_us'] / row['auto_fwd_us']:.2f}", flush=True)
+        del x, y, f, passes
+        torch.cuda.empty_cache()
+    print(f"  mxu times: {json.dumps(mxu_rows)}", flush=True)
 
     # the lab's kernels at the lab's shape, timed as the lab times them (a
     # CUDA graph of launches); their plain versions at batch 32; the one

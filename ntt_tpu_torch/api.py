@@ -30,6 +30,11 @@ The reference's variant families run under their JAX names on K9
 K4-K7.  ``"radix4-vec-unordered"`` returns the forward in the layout of
 ``output_layout`` and its inverse reads it.
 
+``"mxu"`` (q < 2^28) runs the four-step transform as two int8-limb
+matrix products mod q on K11 ``limb_matmul`` (``kernels/mxu.py``), two
+launches a transform; its output is always strict.  ``"auto"`` never
+picks it, as in the JAX package.
+
 ``"sixstep-unordered"`` returns the forward in the transposed layout that
 ``output_layout`` describes, and its inverse reads that layout; the
 layout's split is the JAX package's (``kernels.sixstep.word_split``), so
@@ -48,8 +53,8 @@ import numpy as np
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch.kernels import (fused, layouts, mixed, pointwise, radix2, radix4, rec, sixstep,
-                                   twopass)
+from ntt_tpu_torch.kernels import (fused, layouts, mixed, mxu, pointwise, radix2, radix4, rec,
+                                   sixstep, twopass)
 from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.params import NttParams
 from ntt_tpu_torch.plan import NttPlan, get_plan
@@ -312,6 +317,16 @@ _word64_variant(
     _radix2_inv, min_m=4,
     description="radix-2 over the 3N r2_16 layout (src/ntt_r2_16_avx512_ifma.c), its tail "
     "segments read through their duplications and lane orders; the inverse is radix2's")
+
+
+register(Variant(
+    "mxu",
+    fwd=lambda plan, a, lazy, plain=False: mxu.fwd_mxu(a, plan, plain),
+    inv=lambda plan, a, plain=False: mxu.inv_mxu(a, plan, plain),
+    max_q_bits=mxu.MAX_Q_BITS,
+    description="four-step NTT as two int8-limb matrix products mod q on the tensor cores "
+    "(K11 limb_matmul, the TPU's MXU form, ntt_tpu/kernels/mxu.py); always strict; "
+    "q < 2^28"))
 
 
 # The (width, m) cells where 'auto' takes 'sixstep-rec', with the range of

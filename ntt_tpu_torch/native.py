@@ -51,6 +51,7 @@ _R4_STAGE = [_P, _P, _P, _P, _U64, _LL, _I, _I, _I, _I, _I, _I, _LL, _I, _I, _U6
 _DIAG = [_P, _P, _I, _I, _P]
 _DIAG_MUL = [_P, _P, _U64, _I, _I, _I, _P]
 _DIAG_MATH = [_P, _P, _P, _P, _U64, _I, _I, _I, _P]
+_LIMB_MATMUL = [_P, _P, _P, _P, _P, _U64, _LL, _I, _I, _P]
 SIGNATURES = {
     "ntt_fwd_fused_u32": _FUSED_FWD,
     "ntt_fwd_fused_u64": _FUSED_FWD,
@@ -67,6 +68,8 @@ SIGNATURES = {
                       ("diag_math", _DIAG_MATH), ("diag_moves", _DIAG),
                       ("r2_stage", _R2_STAGE), ("r4_stage", _R4_STAGE))},
     "ntt_r4_stage_w56": _R4_STAGE,
+    **{f"ntt_limb_matmul_{c}{s}": _LIMB_MATMUL for c in ("left", "right")
+       for s in ("", "_scaled")},
 }
 
 

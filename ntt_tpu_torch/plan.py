@@ -9,7 +9,8 @@ constants, the fused final stage's ``(f_tmp, f_con)``
 level plans and factored twist tables (``ntt_tpu.api._rec_level_plans``
 / ``_rec_twist_reps``), and the expanded tables of the reference's
 variant families (``ntt_tpu/plan.py:68-190``; EXTRA_TABLES), each with
-its constants at the words its variants compute at.  Host tables are
+its constants at the words its variants compute at, and the 'mxu'
+variant's limb matrices and twiddle / scale tables (MXU_TABLES).  Host tables are
 numpy uint64 built by the port's ``twiddles``, each at first use; device
 tables are int32 or int64 tensors, cached per device and width.
 """
@@ -41,6 +42,10 @@ EXTRA_TABLES = {
                       "w_r4_vec_inv_unord_con", "w_r4r2", "w_r4r2_con")},
 }
 EXTRA_SCALARS = ("n_inv_con56",)
+# The mxu variant's tables, forward and inverse: dicts with the JAX
+# package's keys (``twiddles.mxu_tables``; ``get_mxu_tables`` /
+# ``get_mxu_inv_tables`` in the JAX package, via ``kernels.mxu.tables_from_numpy``).
+MXU_TABLES = {"mxu": ("m1", "w2", "t", "t_con"), "mxu_inv": ("w2i", "m1i", "s", "s_con")}
 
 
 def final_mulop(n_inv_op: int, n_inv_con: int, w1: int, q: int, word: int):
@@ -63,6 +68,7 @@ class DeviceTables:
         self._plan, self._device = plan, device
         self._twist: dict[tuple[int, bool], tuple[torch.Tensor, ...]] = {}
         self._tables: dict[tuple[str, int], torch.Tensor] = {}
+        self._mxu: dict[bool, dict] = {}
 
     def table(self, name: str, word: int) -> torch.Tensor:
         """Host table ``name`` on this device: int32 (its low 32 bits) at
@@ -94,6 +100,19 @@ class DeviceTables:
     def w_inv_con(self) -> torch.Tensor:
         return self._load("w_inv_con")
 
+    def mxu(self, inverse: bool) -> dict:
+        """The plan's mxu tables (``NttPlan.mxu`` / ``mxu_inv``) on this
+        device: limbs as int8 tensors, the (N1, N2) tables as int32 (their
+        uint32 patterns), ``n1_log`` as it is."""
+        if inverse not in self._mxu:
+            host = self._plan.mxu_inv if inverse else self._plan.mxu
+            self._mxu[inverse] = {
+                k: v if k == "n1_log" else torch.from_numpy(np.ascontiguousarray(
+                    v if v.dtype == np.int8 else v.astype(np.uint32).view(np.int32)
+                )).to(self._device)
+                for k, v in host.items()}
+        return self._mxu[inverse]
+
     def twist(self, l1_log: int, inverse: bool) -> tuple[torch.Tensor, ...]:
         """(A, Ac, B, Bc) of ``NttPlan.twist_tables`` on this device."""
         key = (l1_log, inverse)
@@ -122,7 +141,9 @@ class NttPlan:
         """A plan computing with given tables: ``tables`` maps every name in
         TABLE_NAMES to a numpy array of N entries (or an int for the
         ``n_inv_con*`` scalars), e.g. the attributes of a JAX
-        ``ntt_tpu.plan.NttPlan`` of the same params."""
+        ``ntt_tpu.plan.NttPlan`` of the same params; it may also hold the
+        EXTRA_TABLES, EXTRA_SCALARS and the MXU_TABLES dicts
+        (``kernels.mxu.tables_from_numpy``)."""
         missing = [k for k in TABLE_NAMES if k not in tables]
         if missing:
             raise KeyError(f"tables lack {missing}")
@@ -144,6 +165,18 @@ class NttPlan:
         for k in EXTRA_SCALARS:
             if k in tables:
                 plan.__dict__[k] = int(tables[k])
+        n1 = 1 << tw.mxu_split(params.n)
+        n2 = params.n // n1
+        shapes = {"m1": (4, n1, n1), "m1i": (4, n1, n1), "w2": (4, n2, n2),
+                  "w2i": (4, n2, n2)}
+        for k, keys in MXU_TABLES.items():
+            if k in tables:
+                got = dict(tables[k])
+                bad = [t for t in keys if np.shape(got[t]) != shapes.get(t, (n1, n2))]
+                if bad or got["n1_log"] != tw.mxu_split(params.n):
+                    raise ValueError(f"{k}: tables {bad} or n1_log {got['n1_log']} are not "
+                                     f"those of the split N1 = {n1}")
+                plan.__dict__[k] = got
         return plan
 
     # -- host tables (uint64 numpy), built on first use ---------------------
@@ -293,6 +326,15 @@ class NttPlan:
     @functools.cached_property
     def w_r4r2_con(self) -> np.ndarray:
         return self._con("w_r4r2", 64)
+
+    # -- the mxu variant's tables (MXU_TABLES) --------------------------------
+    @functools.cached_property
+    def mxu(self) -> dict:
+        return tw.mxu_tables(self.params.w, self.q, self.n)
+
+    @functools.cached_property
+    def mxu_inv(self) -> dict:
+        return tw.mxu_tables(self.params.w, self.q, self.n, inverse=True)
 
     def host_tables(self) -> dict:
         """Every table by name (the ``from_numpy`` format)."""

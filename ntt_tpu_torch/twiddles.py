@@ -6,7 +6,8 @@ constants at a given word size (64, 56 or 32), the Shoup constant of
 n^-1, the factored twist tables of the two-level six-step, and the
 expanded layouts of the reference's variant families (``expand_w``,
 ``expand_w_hexl``, ``expand_w_r4``, ``expand_w_r4r2``,
-``expand_w_r2_16``).  The
+``expand_w_r2_16``), and the 'mxu' variant's limb matrices and twiddle /
+scale tables (``mxu_tables``).  The
 values are those of the JAX package's builders, computed exactly in
 vectorised uint64 arithmetic (the powers as a (sqrt N x sqrt N) grid of
 Shoup products, the Shoup constants in two 32-bit quotient digits), so a
@@ -396,3 +397,65 @@ def expand_w_r2_16(w_tab: np.ndarray) -> np.ndarray:
     seg = _t1_entries(w, t)
     out[new_idx : new_idx + seg.size] = seg
     return out
+
+
+# ---------------------------------------------------------------------------
+# The tables of the 'mxu' variant (``ntt_tpu/kernels/mxu.py:62-104`` and
+# :194-239): its two matrices split into int8 limbs of 7 bits, and the
+# (N1, N2) twiddle (forward) or scale (inverse, n^-1 folded in) with its
+# word-32 Shoup constant, each row a ``_power_rows`` run instead of the JAX
+# builders' Python loops over entries.
+# ---------------------------------------------------------------------------
+
+MXU_LIMB_BITS = 7
+MXU_LIMBS = 4  # 4 x 7 = 28 bits
+MXU_MAX_Q_BITS = MXU_LIMB_BITS * MXU_LIMBS
+
+
+def mxu_split(n: int) -> int:
+    """log2 N1 of the mxu variant: the balanced split, N1 = 2^(m // 2)
+    (``ntt_tpu.kernels.mxu.get_mxu_tables``), so N2 >= N1."""
+    return (n.bit_length() - 1) // 2
+
+
+def limbs_of_matrix(mat: np.ndarray) -> np.ndarray:
+    """(MXU_LIMBS, *mat.shape) int8: the 7-bit limbs of uint64 entries."""
+    v = np.ascontiguousarray(mat, dtype=np.uint64)
+    mask = np.uint64((1 << MXU_LIMB_BITS) - 1)
+    return np.stack([((v >> np.uint64(MXU_LIMB_BITS * s)) & mask).astype(np.int8)
+                     for s in range(MXU_LIMBS)])
+
+
+def mxu_tables(psi: int, q: int, n: int, inverse: bool = False) -> dict:
+    """The mxu tables of N = N1 * N2 at the balanced split (``mxu_split``)
+    under the 2N-th root psi, with the JAX package's keys.  Forward (``build_mxu_tables``): ``m1`` the limbs of
+    M1[j1, k1] = phi^((2 br(j1) + 1) k1), phi = psi^N2; ``w2`` those of
+    W2[j2, k2] = xi^(br(j2) k2), xi = psi^(2 N1); ``t`` = T[i1, k2] =
+    psi^((2 br(i1) + 1) k2) and ``t_con`` its word-32 Shoup constants.
+    Inverse (``build_mxu_inv_tables``), under psi^-1: ``w2i`` the limbs of
+    W2i[k2, j2] = xi^(-br(j2) k2), ``m1i`` those of M1i[k1, j1] =
+    phi^(-(2 br(j1) + 1) k1), ``s`` = S[i1, k2] = N^-1 psi^(-(2 br(i1) + 1) k2)
+    and ``s_con``.  Limbs are int8 numpy, the rest uint64 numpy; q < 2^28."""
+    if q >= 1 << MXU_MAX_Q_BITS:
+        raise ValueError(f"the mxu tables need q < 2^{MXU_MAX_Q_BITS}, got a "
+                         f"{q.bit_length()}-bit q")
+    n1_log = mxu_split(n)
+    logn = n.bit_length() - 1
+    n1, n2 = 1 << n1_log, 1 << (logn - n1_log)
+    root = pow(psi, -1, q) if inverse else psi
+    phi, xi = pow(root, n2, q), pow(root, 2 * n1, q)
+    odd1 = 2 * bit_rev_perm(n1) + 1
+    br2 = bit_rev_perm(n2)
+
+    def bases(b: int, exps: np.ndarray) -> np.ndarray:
+        return np.array([pow(b, int(e), q) for e in exps], dtype=np.uint64)
+
+    mat1 = _power_rows(bases(phi, odd1), n1, q)  # [j1, k1]
+    mat2 = _power_rows(bases(xi, br2), n2, q)  # [j2, k2]
+    tab = _power_rows(bases(root, odd1), n2, q)  # [i1, k2]
+    if not inverse:
+        return {"m1": limbs_of_matrix(mat1), "w2": limbs_of_matrix(mat2), "t": tab,
+                "t_con": calc_w_con(tab, q, 32), "n1_log": n1_log}
+    tab = mul_mod(tab, np.full_like(tab, pow(n, -1, q)), q)
+    return {"w2i": limbs_of_matrix(mat2.T), "m1i": limbs_of_matrix(mat1.T), "s": tab,
+            "s_con": calc_w_con(tab, q, 32), "n1_log": n1_log}

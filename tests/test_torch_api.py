@@ -45,12 +45,13 @@ def zero_launch_counts():
 
 
 def test_variant_registry():
-    """Every JAX variant but 'mxu' (its int8 tensor-core kernel is not
-    ported yet), each with an inverse."""
-    assert set(api.variants()) == set(jax_api.variants()) - {"mxu"}
+    """Every JAX variant, each with an inverse; a name that no registry has
+    raises."""
+    assert set(api.variants()) == set(jax_api.variants())
     assert all(v.inv is not None for v in api.variants().values())
+    assert "no-such-variant" not in jax_api.variants()
     with pytest.raises(KeyError, match="unknown NTT variant"):
-        api.get_variant("mxu")
+        api.get_variant("no-such-variant")
 
 
 @pytest.mark.parametrize("jp", JAX_ONE_OF_EACH_WIDTH, ids=fixture_id)

@@ -289,11 +289,12 @@ R4_FAMILY = ("radix4", "r4r2", "radix4-vec", "radix4-vec-unordered")
 
 
 def test_registry_holds_the_jax_variants():
-    """Every JAX variant but 'mxu', with JAX's max_q_bits, but 60 for the
-    word-64 radix-4 variants (JAX: 61, test_radix4_cap_below_2_61); no two
-    variants share a forward callable."""
+    """Every JAX variant, with JAX's max_q_bits (mxu's 28 too), but 60 for
+    the word-64 radix-4 variants (JAX: 61, test_radix4_cap_below_2_61); no
+    two variants share a forward callable."""
     port, jax_reg = api.variants(), jax_api.variants()
-    assert set(jax_reg) - set(port) == {"mxu"}
+    assert not set(jax_reg) - set(port)
+    assert port["mxu"].max_q_bits == jax_reg["mxu"].max_q_bits == 28
     for name in NEW:
         want = 60 if name in R4_FAMILY else jax_reg[name].max_q_bits
         assert port[name].max_q_bits == want, name
