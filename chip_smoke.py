@@ -98,7 +98,10 @@ Phases, each of which raises on failure (nothing is caught):
    tensors, bit for bit, at every m from 1 to 20 (batch 2^(20 - m), the
    balanced split) and at m24 batch 1, at q = 0xfff0001 (FIXTURES[8], the
    widest 28-bit fixture q) and q = 0x10001, on limb matrices over the
-   whole range 0..127;
+   whole range 0..127; and the worst case at the deepest K, m24 (K = 4096
+   in both contracts): every matrix limb 127 and every x word 0x0fffffff
+   (every limb 127); the body K11 ran at each m (``mxu.body``: wgmma from
+   K = 128, mma.sync below) is printed;
 16. the mxu slice's main path: with every launch count set to 0,
    ``fwd_ntt`` / ``inv_ntt`` through 'mxu' at the same m (batch 3, 1 at
    m24; q = 0xfff0001 up to m15, the largest 28-bit NTT prime of N beyond)
@@ -449,8 +452,11 @@ def main() -> int:
     print(f"library {res.path.name}: nvcc {res.seconds:.1f} s"
           + (" (already built)" if not res.log else ""), flush=True)
     for line in res.log.splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill")):
+        if any(k in line for k in ("entry function", "registers", "spill", "wgmma")):
             print("  ptxas:", line.strip())
+    print(f"  K11's wgmma body takes dynamic shared memory, not in ptxas's report: "
+          + ", ".join(f"{mxu.wgmma_smem_bytes(1 << k)} bytes at K = {1 << k}"
+                      for k in range(7, mxu.MAX_K_LOG + 1)), flush=True)
 
     params = {"q62": bench_params(14, 62), "q29": FIXTURES[9]}
     rng = np.random.default_rng(args.seed)
@@ -1160,6 +1166,26 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"  q {q:#x}: K11 left and right, with and without the scale, equal to plain "
               f"at m1-m{MXU_LAST_M} (2^{MXU_WORDS_LOG} words) and m24 b1", flush=True)
+    # the worst case at the deepest K: every limb 127 on both sides, the
+    # largest diagonal sums K11 can meet (K11 and plain read bits 0-27)
+    q_w, n_w = MXU_QS[0], 1 << 12  # m24: N1 = N2 = 4096
+    x = torch.full((1, n_w, n_w), 0x0FFFFFFF, device=dev, dtype=torch.int32)
+    s_tab = torch.randint(0, q_w, (n_w, n_w), generator=gen, device=dev, dtype=torch.int32)
+    s_con = ((s_tab.to(torch.int64) << 32) // q_w).to(torch.int32)
+    mat = torch.full((4, n_w, n_w), 127, device=dev, dtype=torch.int8)
+    for contract in ("left", "right"):
+        for scale in (None, (s_tab, s_con)):
+            note(f"limb_matmul_{contract}", mxu.limb_matmul(mat, x, q_w, contract, scale),
+                 mxu.limb_matmul_plain(mat, x, q_w, contract, scale),
+                 f"q {q_w:#x} m24 b1 K11 {contract}{' scaled' if scale else ''}, every limb 127",
+                 quiet=True)
+    torch.cuda.synchronize()
+    del x, s_tab, s_con, mat
+    print(f"  q {q_w:#x} m24 (K = 4096 in both contracts), every limb 127: K11 left and right, "
+          f"with and without the scale, equal to plain", flush=True)
+    print("  K11's body at each m (left over N1, right over N2): " + ", ".join(
+        f"m{m} {mxu.body(1 << m // 2)} / {mxu.body(1 << (m - m // 2))}"
+        for m, _ in mxu_sizes), flush=True)
     torch.cuda.empty_cache()
 
     phase(f"main path of the mxu slice: fwd_ntt / inv_ntt through 'mxu' at every m from 1 to "

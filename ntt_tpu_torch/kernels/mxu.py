@@ -20,7 +20,16 @@ limb products with exact integer sums, adds them into the 7 diagonals
 d = s + t, and recombines sum_d D_d 2^(7d) mod q with a Shoup-Horner chain
 by 2^7 and a Barrett reduction (``_matmul_mod_q`` and ``_horner_mod_q``,
 mxu.py:107-152).  K11 (``csrc/mxu.cu``) runs the limb products on the
-int8 tensor cores; the plain version ``limb_matmul_plain`` takes them as
+int8 tensor cores, in one of two bodies picked by K alone (``body``): from
+K = 128 on warpgroup ``wgmma`` with TMA-fed shared-memory stages, every
+128 k (``WGMMA_CHUNK``) the diagonals paired as E0 = carry + D0 + 2^7 D1,
+E2 = D2 + 2^7 D3, E4 = D4 + 2^7 D5 in int32 and folded into the residue by
+Shoup products by 2^14, 2^28 and 2^42 mod q (with D6); below K = 128 on
+``mma.sync`` with the seven diagonals over the whole K and JAX's Horner
+chain.  Every output is the exact residue, so both orders give these bits
+(``tests/test_torch_mxu_order.py`` holds each order's partial sums to their
+registers).  The plain version
+``limb_matmul_plain`` takes the limb products as
 float64 matrix products, exact because every partial sum is an integer
 below 2^31 < 2^53 (PyTorch has no int64 matrix product on CUDA, and
 float32 or TF32 lose bits beyond 2^24).
@@ -43,6 +52,8 @@ from ntt_tpu_torch.plan import NttPlan
 LIMBS, LIMB_BITS = tw.MXU_LIMBS, tw.MXU_LIMB_BITS
 MAX_Q_BITS = tw.MXU_MAX_Q_BITS
 MAX_K_LOG = 12  # K11 takes K up to 4096 (m24): a diagonal stays below 2^28
+WGMMA_MIN_K = 128  # K11's wgmma body serves K >= 128 (csrc/mxu.cu wg::kMinKLog)
+WGMMA_CHUNK = 128  # ... and folds its diagonals every 128 k (wg::kChunk)
 CONTRACTS = ("left", "right")
 LAUNCHES = {"limb_matmul_left": 0, "limb_matmul_right": 0}
 
@@ -63,6 +74,22 @@ def _horner_mod_q(diags: list[torch.Tensor], q: int) -> torch.Tensor:
     for d in range(len(diags) - 2, -1, -1):
         acc = mm.shoup_mul32_q2(c128, c128_con, acc, q) + diags[d]
     return mm.barrett_reduce32(acc, q)
+
+
+def body(k: int) -> str:
+    """The body K11 runs at contraction depth K, by K alone (csrc/mxu.cu's
+    ``launch_limb_matmul``): ``"wgmma"`` from ``WGMMA_MIN_K``, else
+    ``"mma.sync"``.  ``left`` contracts over N1 = 2^(m // 2), so it takes
+    wgmma from m14; ``right`` over N2, from m13."""
+    return "wgmma" if k >= WGMMA_MIN_K else "mma.sync"
+
+
+def wgmma_smem_bytes(k: int) -> int:
+    """Dynamic shared memory a CTA of K11's wgmma body takes at K (csrc/mxu.cu
+    ``wg::launch``): 64 KB a matrix stage (every chunk of 128 k while K <=
+    256, else a ring of two), a 32 KB x buffer for each of its two pairs of
+    warpgroups, 1 KB of alignment and the barriers."""
+    return min(k // WGMMA_CHUNK, 2) * (1 << 16) + 2 * (1 << 15) + 1024 + 2 * 12
 
 
 def _check(mat_limbs: torch.Tensor, x: torch.Tensor, q: int, contract: str, scale):
@@ -133,8 +160,8 @@ def limb_matmul_plain(mat_limbs: torch.Tensor, x: torch.Tensor, q: int, contract
 def limb_matmul(mat_limbs: torch.Tensor, x: torch.Tensor, q: int, contract: str,
                 scale=None) -> torch.Tensor:
     """K11: ``limb_matmul_plain``'s function, launched on the card for a
-    CUDA tensor (contiguous x, K <= 4096), its plain version for a CPU
-    tensor."""
+    CUDA tensor (contiguous x, K <= 4096; the body ``body(K)``), its plain
+    version for a CPU tensor."""
     if native.route(x) == "cpu":
         return limb_matmul_plain(mat_limbs, x, q, contract, scale)
     k, k_log, f_log = _check(mat_limbs, x, q, contract, scale)
