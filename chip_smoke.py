@@ -8,7 +8,8 @@ Phases, each of which raises on failure (nothing is caught):
 1. device: require a CUDA card; print its name and power limit;
 2. build: compile the CUDA kernels of ntt_tpu_torch/csrc with nvcc for
    sm_90a, one nvcc per source, all started together; print the time and
-   ptxas's register report;
+   ptxas's register report; count a butterfly's SASS instructions and
+   multiplies (``ntt_tpu_torch.sass``), Shoup and Solinas;
 3. kernel vs plain: at N = 2^14, batch 128, for a 62-bit q and a q < 2^30,
    run K1 (fwd_fused, strict and lazy), K2 (inv_fused) and K3 (mul_mod) on
    the card and require each output to equal, bit for bit, the plain
@@ -114,7 +115,39 @@ Phases, each of which raises on failure (nothing is caught):
    --device cuda`` in-process runs every variant on the 19 reference
    fixtures: every line OK or SKIP (pallas-fused beyond one block),
    ``FAILURES: 0``, and every kernel of the API but K3 launched;
-18. times: warm-up, minimum over repetitions, kernel and plain version in
+18. Solinas instantiations vs plain: with ``modmath.USE_SOLINAS`` set (and
+   restored in a ``finally``), every kernel that the NTT_MULMOD=solinas
+   switch reaches in its Solinas instantiation, at q = 2^e - 2^k + 1 of
+   ``find_solinas_ntt_prime``, against its plain version under the switch,
+   bit for bit: K1 (strict, lazy, inputs < 4q) and K2 at every m from 1 to
+   14 at 2^62 - 2^16 + 1 and to 10 at 2^27 - 2^11 + 1; K4-K7 (K5 both
+   layouts, K6 from both) at every m from 1 to 24 at 2^61 - 2^26 + 1 and
+   to 10 at the 27-bit q; K8 at m16-m24 and m2-m10, 'sixstep-rec' at m10,
+   16, 20, 24; the K9 / K10 variants (SOLINAS_FAMILY) through the API at m14
+   batch 1024 (m10 at word 32) and one stage of each entry point on lazy
+   inputs (below 4q for K9, 8q for K10); K3 and
+   K11 (strict outputs) equal with and without the switch;
+19. the Solinas path: with every launch count set to 0, under the switch,
+   ``negacyclic_mul`` at q62 m14 batch 1024, q61 m16 batch 128 and q27
+   m10 batch 1024 (``auto``, and 'sixstep' at q27), the K9 / K10
+   variants' products, round trips at m20 batch 16 and m24 batch 1 (and
+   q27 m10) through ``auto`` and 'sixstep-rec', and ``DeviceNtt.negacyclic``
+   at m14 batch 1024; every Solinas entry point must have been launched and
+   no Shoup one of K1, K2, K4-K10; each product equal to the same call with
+   the switch off and to the schoolbook product at sampled coefficients,
+   each round trip exact;
+20. the switch from the environment: ``NTT_MULMOD=solinas python -m
+   ntt_tpu_torch correctness --full --device cuda`` in a subprocess must
+   exit 0 and print ``FAILURES: 0``;
+21. Solinas against Shoup times: each Solinas instantiation from a CUDA
+   graph beside its Shoup one at the same q and shape (Shoup, Solinas,
+   Solinas, Shoup), its plain version under the switch, and its bound
+   recomputed for the switched work (no Shoup-constant bytes of the single
+   products, the Solinas product's multiplies counted from its SASS in the
+   build phase): K1 / K2 at m14 batch 1024 (m10 batch 16384 at word 32),
+   K4-K7 at m16 b128, m20 b16, m24 b1 (and the 27-bit q at m10), K8 at m24
+   (and m10), one K9 / K10 stage;
+22. times: warm-up, minimum over repetitions, kernel and plain version in
    turns, beside the card's name and power limit; each kernel's bound, the
    larger of its bytes over the memory rate and its integer multiplies
    over the multiply rate.  Every kernel is timed as the lab times it (a
@@ -160,10 +193,13 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import functools
 import io
 import json
+import os
 import pathlib
 import re
+import subprocess
 import sys
 import time
 
@@ -208,6 +244,18 @@ FAMILY_LARGE = ((20, 2), (24, 1))  # (m, batch), the word-64 widths
 FAMILY_HE = (("radix2", 62), ("seal", 62), ("hexl", 62), ("r2-16", 62), ("radix4x4", 62),
              ("radix4", 60), ("radix4-vec", 60), ("radix4-vec-unordered", 60), ("r4r2", 60),
              ("radix4-w56", 52), ("radix2-u32", "fixture9"), ("radix4-u32", 27), ("r4r2", 27))
+# The Solinas slice (the NTT_MULMOD=solinas switch): the K9 / K10 variants
+# held against their plain versions, (variant, q bits of find_solinas_ntt_prime,
+# m), batch BATCH_HE; and one stage of each K9 / K10 Solinas entry point,
+# (entry point, q bits, m, batch, lt), at 2^24 words
+SOLINAS_FAMILY = (("radix2", 62, 14), ("seal", 62, 14), ("hexl", 62, 14), ("r2-16", 62, 14),
+                  ("radix4", 60, 14), ("radix4-vec", 60, 14), ("radix4-vec-unordered", 60, 14),
+                  ("r4r2", 60, 14), ("radix2-u32", 27, 10), ("radix4-u32", 27, 10),
+                  ("r4r2", 27, 10))
+SOLINAS_STAGES = (("r2_stage_solinas_u64", 62, 14, 1024, 6),
+                  ("r4_stage_solinas_u64", 60, 14, 1024, 6),
+                  ("r2_stage_solinas_u32", 27, 10, 1 << 14, 4),
+                  ("r4_stage_solinas_u32", 27, 10, 1 << 14, 4))
 FAMILY_SMALL_M = (6, 7, 8)  # radix2 and radix4-u32 against pallas-fused, for 'auto'
 FAMILY_SMALL_BATCHES = (128, 1024)
 STAGE_KERNELS = ("r2_stage_u32", "r2_stage_u64", "r4_stage_u32", "r4_stage_u64",
@@ -260,6 +308,10 @@ INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations (the same data she
 # word 32; at word 64 a 64x64 high half takes four partial products and each
 # low half three.  mul_mod: the full product, then folds (pointwise.cu).
 SHOUP_MULS = {32: 3, 64: 10}
+# 32-bit multiplies of one Solinas product (the NTT_MULMOD=solinas switch) at
+# each word: counted from the SASS of its butterfly (ntt_tpu_torch.sass) in
+# the build phase of each run
+SOLINAS_MULS: dict[int, int] = {}
 MUL_MOD_MULS = {32: 6, 64: 34}
 N_MULTS = 42  # the multiplies of diag_mul on each 32-bit half (probes.N_MULTS)
 # K11's epilogue a word: six Shoup products of the Horner chain, Barrett's two
@@ -273,7 +325,8 @@ def every_m_batch(m: int) -> int:
     return 1 if m >= LARGE_M else BATCH_EVERY_M
 
 
-def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int):
+def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int,
+                solinas: bool = False):
     """(bytes, 32-bit multiplies) one launch must move and do: each input
     read once (the twiddle entries it uses included), each output written
     once.  The lab's transforms do K1's work; diag_math runs m rounds of
@@ -290,32 +343,39 @@ def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int):
     (N1, N2) scale with its constants (8 bytes an entry), does 32 K int8
     tensor-core operations a word (16 limb products of a K-deep dot product,
     2 operations a term) and the epilogue's 32-bit multiplies; its entry is
-    (bytes, multiplies, int8 operations)."""
+    (bytes, multiplies, int8 operations).  With solinas, the work of the
+    kernel's Solinas instantiation: a twiddle entry of a single product is
+    one word (no Shoup constant), each single product SOLINAS_MULS[word]
+    multiplies; the fused final stage's second product and r4_stage's dual
+    products stay Shoup."""
     n, size = 1 << m, word // 8
     data = 2 * batch * n * size
-    bfly = batch * n // 2 * SHOUP_MULS[word]  # one stage
+    shoup = SHOUP_MULS[word]
+    prod = SOLINAS_MULS[word] if solinas else shoup  # a single product
+    tw = 1 if solinas else 2  # words a twiddle entry of a single product
+    bfly = batch * n // 2 * prod  # one stage
+    final2 = batch * n // 2 * shoup  # the final stage's second product
     n1 = 1 << n1_log
     twist_lo = 1 << (m - n1_log + 1) // 2
     twist_hi = (n >> n1_log) // twist_lo
-    fused = (data + 2 * n * size, bfly * m)
+    fused = (data + tw * n * size, bfly * m)
     return {
         "fwd_fused": fused,
         **{k: fused for k in LAB_TRANSFORMS},
         "diag_copy": (data, 0),
         "diag_moves": (data, 0),
         "diag_mul": (data, batch * n * N_MULTS * word // 32),
-        "diag_math": (data + 2 * size, bfly * m),
-        "inv_fused": (data + 2 * n * size, bfly * (m + 1)),  # final stage: two
+        "diag_math": (data + tw * size, bfly * m),
+        "inv_fused": (data + tw * n * size, bfly * m + final2),  # final stage: two
         "mul_mod": (3 * batch * n * size, batch * n * MUL_MOD_MULS[word]),
-        "fwd_cols": (data + 2 * n1 * size, bfly * n1_log),
-        "inv_cols": (data + 2 * n1 * size, bfly * (n1_log + 1)),
-        "fwd_rows": (data + 2 * (n - n1) * size, bfly * (m - n1_log)),
-        "inv_rows": (data + 2 * (n - n1) * size, bfly * (m - n1_log)),
-        "twist_mul": (data + 2 * n1 * (twist_hi + twist_lo) * size,
-                      2 * batch * n * SHOUP_MULS[word]),
-        "r2_stage": (data + 2 * (n >> (n1_log + 1)) * size, bfly),
-        "r4_stage": (data + 10 * (n >> (n1_log + 2)) * size,
-                     batch * n // 4 * 5 * SHOUP_MULS[word]),
+        "fwd_cols": (data + tw * n1 * size, bfly * n1_log),
+        "inv_cols": (data + tw * n1 * size, bfly * n1_log + final2),
+        "fwd_rows": (data + tw * (n - n1) * size, bfly * (m - n1_log)),
+        "inv_rows": (data + tw * (n - n1) * size, bfly * (m - n1_log)),
+        "twist_mul": (data + tw * n1 * (twist_hi + twist_lo) * size, 2 * batch * n * prod),
+        "r2_stage": (data + tw * (n >> (n1_log + 1)) * size, bfly),
+        "r4_stage": (data + (8 + tw) * (n >> (n1_log + 2)) * size,
+                     batch * n // 4 * (prod + 4 * shoup)),
         "limb_matmul": (data + 4 * n1 * n1 + 8 * n, batch * n * LIMB_EPILOGUE_MULS,
                         32 * n1 * batch * n),
     }[kernel]
@@ -432,12 +492,13 @@ def main() -> int:
         print(f"ntt_tpu_torch/ not found beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from ntt_tpu_torch import FIXTURES, NttParams, api, bench_params, lab, native, rns
+    from ntt_tpu_torch import FIXTURES, NttParams, api, bench_params, lab, native, rns, sass
     from ntt_tpu_torch import __main__ as cli
     from ntt_tpu_torch import modmath as mm
     from ntt_tpu_torch.kernels import (fused, fused_lab, mxu, pointwise, probes, radix2, radix4,
                                        rec, sixstep, twopass)
     from ntt_tpu_torch.kernels.elems import pick_ops
+    from ntt_tpu_torch.params import find_solinas_ntt_prime
     from ntt_tpu_torch.plan import get_plan
 
     dev = torch.device("cuda", 0)
@@ -457,6 +518,15 @@ def main() -> int:
     print(f"  K11's wgmma body takes dynamic shared memory, not in ptxas's report: "
           + ", ".join(f"{mxu.wgmma_smem_bytes(1 << k)} bytes at K = {1 << k}"
                       for k in range(7, mxu.MAX_K_LOG + 1)), flush=True)
+    t0 = time.perf_counter()
+    bfly_sass = sass.butterfly_counts()
+    for w in (32, 64):
+        SOLINAS_MULS[w] = bfly_sass[f"fwd_bfly_solinas_u{w}"]["multiplies"]
+    print(f"  SASS of one butterfly ({time.perf_counter() - t0:.1f} s): " + "; ".join(
+        f"{k} {v['instructions']} instructions, {v['multiplies']} multiplies"
+        for k, v in bfly_sass.items()), flush=True)
+    print(f"  32-bit multiplies of one single product: Solinas {SOLINAS_MULS} (SASS), Shoup "
+          f"{SHOUP_MULS} (by hand)", flush=True)
 
     params = {"q62": bench_params(14, 62), "q29": FIXTURES[9]}
     rng = np.random.default_rng(args.seed)
@@ -1044,6 +1114,331 @@ def main() -> int:
         if not torch.equal(back, x):
             raise AssertionError(f"{tag}: round trip differs")
 
+    # -- the Solinas slice: the NTT_MULMOD=solinas switch -----------------------
+    # Phases 18-21 flip the port's global modmath.USE_SOLINAS (restored in a
+    # finally, which re-raises) and run the Solinas instantiations of K1, K2,
+    # K4-K10 at q = 2^e - 2^k + 1 (find_solinas_ntt_prime): the headline
+    # 2^62 - 2^16 + 1 up to m15, 2^61 - 2^21 + 1 to m20 and 2^61 - 2^26 + 1 to
+    # m25 (no 62-bit prime of the form serves m16 and up), 2^60 - 2^18 + 1 for
+    # the radix-4 family (q < 2^60), 2^27 - 2^11 + 1 at word 32 (m <= 10).
+    @contextlib.contextmanager
+    def switch(on=True):
+        before = mm.USE_SOLINAS
+        mm.USE_SOLINAS = on
+        try:
+            yield
+        finally:
+            mm.USE_SOLINAS = before
+
+    @functools.lru_cache(maxsize=None)
+    def params_of(q, m):
+        return NttParams.make(q, m)
+
+    def sol_params(bits, m):
+        """The params of find_solinas_ntt_prime(bits, m) at m; the q takes the
+        Solinas product at its word."""
+        p = params_of(find_solinas_ntt_prime(bits, m), m)
+        if mm.solinas_form(p.q) is None and mm.solinas_form32(p.q) is None:
+            raise AssertionError(f"q {p.q:#x} is not of the Solinas form")
+        return p
+
+    sol_counts = (fused.SOLINAS_LAUNCHES, twopass.SOLINAS_LAUNCHES, rec.SOLINAS_LAUNCHES,
+                  radix2.SOLINAS_LAUNCHES, radix4.SOLINAS_LAUNCHES)
+    shoup_counts = (fused.LAUNCHES, twopass.LAUNCHES, rec.LAUNCHES, radix2.LAUNCHES,
+                    radix4.LAUNCHES)
+
+    def solinas_slice():
+        """Phases 18-21; returns the Solinas rows of the kernel table."""
+        phase(f"Solinas instantiations vs plain under the switch: K1 / K2 at every m they "
+              f"serve (q62, and q27 to m10), K4-K7 at every m from 1 to {TWO_PASS_LAST_M} "
+              f"(q61; q27 to m10), K8 and sixstep-rec at m16-m24, the K9 / K10 variants at "
+              f"m14 batch {BATCH_HE} (q27 at m10), K3 and K11 unchanged")
+        with switch():
+            for word, bits, last in ((64, 62, fused.max_logn(64)), (32, 27, 10)):
+                for m in range(1, last + 1):
+                    p = sol_params(bits, m)
+                    plan, ops = get_plan(p), pick_ops(p.q)
+                    tabs = plan.device_tables(dev)
+                    a = rand(p, BATCH_EVERY_M, hi=4 * p.q)
+                    tag = f"q{bits} m{m} b{BATCH_EVERY_M}"
+                    for strict in (True, False):
+                        note(f"fwd_fused_solinas_u{word}", fused.fwd_fused(a, plan, strict),
+                             sixstep.fwd_sixstep(a, ops, tabs.w, tabs.w_con, p.q, strict=strict),
+                             f"{tag} K1 {'strict' if strict else 'lazy'}", quiet=True)
+                    f = sixstep.fwd_sixstep(a, ops, tabs.w, tabs.w_con, p.q)
+                    note(f"inv_fused_solinas_u{word}", fused.inv_fused(f, plan),
+                         sixstep.inv_sixstep(f, ops, tabs.w_inv, tabs.w_inv_con,
+                                             *plan.inv_consts, p.q), f"{tag} K2", quiet=True)
+                print(f"  q {sol_params(bits, last).q:#x}: Solinas K1 (strict, lazy, inputs < "
+                      f"4q) and K2 equal to plain at m1-m{last} batch {BATCH_EVERY_M}", flush=True)
+            q61 = find_solinas_ntt_prime(61, REC_LAST_M)
+            for word, q, last in ((64, q61, TWO_PASS_LAST_M), (32, sol_params(27, 10).q, 10)):
+                for m in range(1, last + 1):
+                    p = params_of(q, m)
+                    plan, ops = get_plan(p), pick_ops(p.q)
+                    tabs = plan.device_tables(dev)
+                    n1 = sixstep.word_split(p.n, word)
+                    tag = f"q {q:#x} m{m} (n1_log {n1})"
+                    a = rand_dev(p, every_m_batch(m), lazy=True)
+                    c = sixstep.fwd_cols(a, ops, tabs.w, tabs.w_con, p.q, n1)
+                    note(f"fwd_cols_solinas_u{word}", twopass.fwd_cols(a, plan, n1), c,
+                         f"{tag} K4 on input < 4q", quiet=True)
+                    fr = {}
+                    for strict in (True, False):
+                        for keep_t in (False, True):
+                            fr[strict, keep_t] = sixstep.fwd_rows(c, ops, tabs.w, tabs.w_con, p.q,
+                                                                  n1, strict, keep_t)
+                            note(f"fwd_rows_solinas_u{word}",
+                                 twopass.fwd_rows(c, plan, n1, strict, keep_t), fr[strict, keep_t],
+                                 f"{tag} K5 {strict} {keep_t}", quiet=True)
+                    r = sixstep.inv_rows(fr[True, False], ops, tabs.w_inv, tabs.w_inv_con, p.q, n1)
+                    note(f"inv_rows_solinas_u{word}", twopass.inv_rows(fr[True, False], plan, n1),
+                         r, f"{tag} K6", quiet=True)
+                    note(f"inv_rows_solinas_u{word}",
+                         twopass.inv_rows(fr[True, True], plan, n1, input_transposed=True), r,
+                         f"{tag} K6 from the transposed layout", quiet=True)
+                    note(f"inv_cols_solinas_u{word}", twopass.inv_cols(r, plan, n1),
+                         sixstep.inv_cols(r, ops, tabs.w_inv, tabs.w_inv_con, *plan.inv_consts,
+                                          p.q, n1), f"{tag} K7", quiet=True)
+                    del a, c, fr, r
+                torch.cuda.empty_cache()
+                print(f"  q {q:#x}: Solinas K4 (input < 4q), K5 (strict, lazy, both layouts), "
+                      f"K6 (both layouts) and K7 equal to plain at m1-m{last} (batch "
+                      f"{BATCH_EVERY_M}, 1 from m{LARGE_M})", flush=True)
+            q27 = find_solinas_ntt_prime(27, 10)
+            for word, q, m in [(64, q61, m) for m in range(16, REC_LAST_M + 1)] + [
+                    (32, q27, m) for m in range(2, 11)]:
+                p = params_of(q, m)
+                plan, ops, l1 = get_plan(p), pick_ops(p.q), sixstep.rec_split(m)
+                x = rand_dev(p, every_m_batch(m), lazy=True)
+                for inverse in (False, True):
+                    note(f"twist_mul_solinas_u{word}", rec.twist_mul(x, plan, l1, inverse),
+                         sixstep.twist_mul(x, ops, plan.device_tables(dev).twist(l1, inverse),
+                                           p.q), f"w{word} m{m} K8 inverse={inverse}", quiet=True)
+                if m in (10, 16, 20, 24):
+                    x = rand_dev(p, every_m_batch(m))
+                    for strict in (True, False):
+                        note("sixstep-rec", api.fwd_ntt(x, p, "sixstep-rec", lazy=not strict),
+                             rec.plain_fwd(x, plan, strict), f"m{m} sixstep-rec {strict}",
+                             quiet=True)
+                    f = api.fwd_ntt(x, p, "sixstep-rec")
+                    note("sixstep-rec", api.inv_ntt(f, p, "sixstep-rec"), rec.plain_inv(f, plan),
+                         f"m{m} sixstep-rec inverse", quiet=True)
+                del x
+            torch.cuda.empty_cache()
+            print(f"  Solinas K8 (both twists, input < 4q) equal to plain at q {q61:#x} "
+                  f"m16-m{REC_LAST_M} and q {q27:#x} m2-m10; sixstep-rec (strict, lazy, "
+                  "inverse) at q27 m10 and q61 m16, m20, m24", flush=True)
+            for name, bits, m in SOLINAS_FAMILY:
+                check_family(name, sol_params(bits, m), BATCH_HE)
+                print(f"  {name} q{bits} m{m} b{BATCH_HE}: strict, lazy and inverse equal to "
+                      "plain, strict equal to sixstep's, round trip exact", flush=True)
+            torch.cuda.empty_cache()
+            # one stage of each K9 / K10 entry point at the timed shapes
+            for name, bits, m, batch, lt in SOLINAS_STAGES:
+                p = sol_params(bits, m)
+                plan, word = get_plan(p), int(name[-2:])
+                tabs = plan.device_tables(dev)
+                if name.startswith("r2"):
+                    st, tab, kern, plain = (radix2.R2Stage(lt=lt, base=1 << (m - 1 - lt)), "w",
+                                            radix2.r2_stage, radix2.plain_stage)
+                else:
+                    st, tab, kern, plain = (radix4.R4Stage(lt=lt), "w_r4", radix4.r4_stage,
+                                            radix4.plain_stage)
+                # lazy inputs at each family's bound: 4q radix-2, 8q radix-4 (e <= 61)
+                bound_q = 4 if name.startswith("r2") else 8
+                host = rng.integers(0, bound_q * p.q, size=(batch, p.n), dtype=np.uint64)
+                x = mm.from_host(host, p.q, dev, wide=word == 64)
+                args = (tabs.table(tab, word), tabs.table(radix2.con_name(tab, word), word), st,
+                        p.q, word, radix2.consts_at(plan, word))
+                note(name, kern(x, *args), plain(x, *args),
+                     f"{name} one stage (lt {lt}) at m{m} batch {batch}, inputs < {bound_q}q")
+            # K3 and K11 compute strict outputs: unchanged by the switch
+            p = sol_params(62, 14)
+            x, y = rand(p, BATCH_CHECK), rand(p, BATCH_CHECK)
+            k3 = pointwise.mul_mod(x, y, p.q)
+            note("mul_mod_u64", k3, pick_ops(p.q).mul_mod(x, y, p.q), "q62 K3 under the switch")
+            with switch(False):
+                if not torch.equal(k3, pick_ops(p.q).mul_mod(x, y, p.q)):
+                    raise AssertionError("K3 under the switch differs from the Shoup plain path")
+            p = sol_params(27, 10)
+            x = rand(p, BATCH_CHECK)
+            v = api.get_variant("mxu")
+            k11 = api.fwd_ntt(x, p, "mxu")
+            note("mxu", k11, v.fwd(get_plan(p), x, False, plain=True), "q27 m10 mxu under the switch")
+            note("mxu", api.inv_ntt(k11, p, "mxu"), v.inv(get_plan(p), k11, plain=True),
+                 "q27 m10 mxu inverse under the switch")
+            with switch(False):
+                if not torch.equal(k11, api.fwd_ntt(x, p, "auto")):
+                    raise AssertionError("mxu under the switch differs from 'auto' off it")
+
+        phase("main path under the switch: negacyclic_mul q62 m14 batch "
+              f"{BATCH_HE}, q61 m16 batch 128, round trips m20 batch 16 and m24 batch 1 (flat "
+              f"and sixstep-rec), DeviceNtt.negacyclic m14 batch {BATCH_HE}, q27 m10 batch "
+              f"{BATCH_HE} (auto, sixstep, sixstep-rec) and the K9 / K10 variants' products")
+        with switch():
+            he = {k: (p, rand(p, b), rand(p, b)) for k, (p, b) in (
+                ("q62 m14", (sol_params(62, 14), BATCH_HE)), ("q61 m16", (sol_params(61, 16), 128)),
+                ("q27 m10", (sol_params(27, 10), BATCH_HE)), ("q60 m14", (sol_params(60, 14), BATCH_HE)))}
+            rts = {k: (p, rand_dev(p, b)) for k, (p, b) in (
+                ("q61 m20", (sol_params(61, 20), 16)), ("q61 m24", (sol_params(61, 24), 1)),
+                ("q27 m10", (sol_params(27, 10), 16)))}
+            ctx = api.DeviceNtt(he["q62 m14"][0], device=dev)
+            products = (("q62 m14", "auto"), ("q61 m16", "auto"), ("q27 m10", "auto"),
+                        ("q27 m10", "sixstep"), ("q62 m14", "radix2"), ("q60 m14", "radix4"),
+                        ("q27 m10", "radix2-u32"), ("q27 m10", "radix4-u32"))
+            torch.cuda.synchronize()
+            for counts in sol_counts + shoup_counts + (pointwise.LAUNCHES, mxu.LAUNCHES):
+                for k in counts:
+                    counts[k] = 0
+            prod = {(k, v): api.negacyclic_mul(he[k][1], he[k][2], he[k][0], variant=v)
+                    for k, v in products}
+            hprod = ctx.negacyclic(he["q62 m14"][1], he["q62 m14"][2])
+            back = {(k, v): api.inv_ntt(api.fwd_ntt(x, p, v), p, v)
+                    for k, (p, x) in rts.items() for v in ("auto", "sixstep-rec")}
+            torch.cuda.synchronize()
+        launches = {k: v for c in sol_counts for k, v in c.items()}
+        shoup = {k: v for c in shoup_counts for k, v in c.items() if v}
+        print(f"  Solinas launch counts of this path: {launches}; Shoup launches of the same "
+              f"kernels: {shoup or 'none'}; K3 {pointwise.LAUNCHES}", flush=True)
+        idle = [k for k, v in launches.items() if v == 0]
+        if idle or shoup or pointwise.LAUNCHES["mul_mod_u64"] == 0:
+            raise AssertionError(f"Solinas kernels never launched by the path: {idle}; Shoup "
+                                 f"launches on it: {shoup}")
+        for (k, v), got in prod.items():
+            p, x, y = he[k]
+            if not torch.equal(got, api.negacyclic_mul(x, y, p, variant=v)):
+                raise AssertionError(f"{k} {v}: the product differs with the switch off")
+            ks = check_product_rows(p, x, y, got, f"{k} {v}")
+            print(f"  {k} {v} (q {p.q:#x}): negacyclic_mul {tuple(x.shape)} under the switch "
+                  f"equals the same call off it and, at coefficients {ks} of two rows, the "
+                  "schoolbook product", flush=True)
+        if not torch.equal(hprod, prod["q62 m14", "auto"]):
+            raise AssertionError("DeviceNtt.negacyclic under the switch differs from "
+                                 "negacyclic_mul")
+        for (k, v), got in back.items():
+            if not torch.equal(got, rts[k][1]):
+                raise AssertionError(f"{k} {v}: the round trip under the switch is not exact")
+        print(f"  DeviceNtt q62 m14 negacyclic equals negacyclic_mul; round trips "
+              f"{', '.join(f'{k} {v}' for k, v in back)} exact", flush=True)
+        del he, rts, prod, hprod, back, ctx
+        torch.cuda.empty_cache()
+
+        phase("the switch from the environment: NTT_MULMOD=solinas python -m ntt_tpu_torch "
+              "correctness --full --device cuda, in a subprocess")
+        out = subprocess.run([sys.executable, "-m", "ntt_tpu_torch", "correctness", "--full",
+                              "--device", "cuda", "--seed", str(seed)],
+                             env=dict(os.environ, NTT_MULMOD="solinas"), cwd=ROOT,
+                             capture_output=True, text=True, timeout=900)
+        lines = out.stdout.splitlines()
+        if out.returncode != 0 or not lines or lines[-1] != "FAILURES: 0":
+            print(out.stdout[-6000:], out.stderr[-6000:], flush=True)
+            raise AssertionError(f"NTT_MULMOD=solinas correctness --full --device cuda: exit "
+                                 f"{out.returncode}")
+        rows = [re.match(r"q=0x[0-9a-f]+ m=\s*\d+ (\S+)\s+(\S+)", ln) for ln in lines[:-1]]
+        tally = collections.Counter(r.group(2) if r else "UNPARSED" for r in rows)
+        if set(tally) - {"OK", "SKIP"}:
+            raise AssertionError(f"NTT_MULMOD=solinas correctness --full: {dict(tally)}")
+        print(f"  exit 0, {dict(tally)}, {lines[-1]}", flush=True)
+
+        phase(f"Solinas against Shoup times at the same q and shape (kernels from a CUDA graph "
+              f"of launches, in turns Shoup, Solinas, Solinas, Shoup; plain versions under the "
+              f"switch between CUDA events; {smi})")
+        rows = []
+
+        def timed(name, fn, x, plain, p, m, n1_log, batch, word, shape, plain_shape=None,
+                  record=True):
+            def graph_ms(on):
+                with switch(on):
+                    return lab.cuda_us(fn, x, 3, lab.INNER) / 1e3
+            t = [graph_ms(on) for on in (False, True, True, False)]
+            sol_ms, shoup_ms = min(t[1:3]), min(t[0], t[3])
+            with switch():
+                p_ms = cuda_ms(torch, plain, 2)
+            base = name.rsplit("_", 1)[0].removesuffix("_solinas")
+            b_ms, b_by = bound(*kernel_work(base, m, n1_log, batch, word, solinas=True))
+            s_ms, _ = bound(*kernel_work(base, m, n1_log, batch, word))
+            print(f"  {name} {shape} (q {p.q:#x}): Solinas {sol_ms * 1e3:.1f} us (bound "
+                  f"{b_ms * 1e3:.1f}, {b_by}; {b_ms / sol_ms:.0%}), Shoup {shoup_ms * 1e3:.1f} us "
+                  f"(bound {s_ms * 1e3:.1f}; {s_ms / shoup_ms:.0%}), plain {p_ms * 1e3:.1f} us"
+                  + (f" ({plain_shape})" if plain_shape else ""), flush=True)
+            row = {"name": name, "route": "cuda", "source": SOURCES[base],
+                   "replaces": REPLACES[base], "launches": launches[name],
+                   "max_abs_err": errs[name], "ms": sol_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "library_ms": None, "shape": shape,
+                   "shoup_ms": shoup_ms, "shoup_bound_ms": s_ms}
+            if plain_shape:
+                row["plain_shape"] = plain_shape
+            if record:
+                rows.append(row)
+
+        for word, bits, m in ((64, 62, 14), (32, 27, 10)):
+            p = sol_params(bits, m)
+            plan, ops = get_plan(p), pick_ops(p.q)
+            tabs = plan.device_tables(dev)
+            batch = WORDS_PER_M >> m
+            a = rand_dev(p, batch)
+            with switch():
+                f = fused.fwd_fused(a, plan)
+            timed(f"fwd_fused_solinas_u{word}", lambda t: fused.fwd_fused(t, plan), a,
+                  lambda: sixstep.fwd_sixstep(a, ops, tabs.w, tabs.w_con, p.q), p, m, m, batch,
+                  word, f"m{m} batch {batch}")
+            timed(f"inv_fused_solinas_u{word}", lambda t: fused.inv_fused(t, plan), f,
+                  lambda: sixstep.inv_sixstep(f, ops, tabs.w_inv, tabs.w_inv_con,
+                                              *plan.inv_consts, p.q), p, m, m, batch, word,
+                  f"m{m} batch {batch}")
+            del a, f
+        for word, bits, m, batch in ((64, 61, 16, 128), (64, 61, 20, 16), (64, 61, 24, 1),
+                                     (32, 27, 10, WORDS_PER_M >> 10)):
+            p = sol_params(bits, m)
+            plan, ops = get_plan(p), pick_ops(p.q)
+            tabs = plan.device_tables(dev)
+            n1 = sixstep.word_split(p.n, word)
+            a = rand_dev(p, batch)
+            with switch():
+                c = twopass.fwd_cols(a, plan, n1)
+                f = twopass.fwd_rows(c, plan, n1)
+                r = twopass.inv_rows(f, plan, n1)
+            args = (p, m, n1, batch, word, f"m{m} batch {batch}", None, m in (16, 10))
+            timed(f"fwd_cols_solinas_u{word}", lambda t: twopass.fwd_cols(t, plan, n1), a,
+                  lambda: sixstep.fwd_cols(a, ops, tabs.w, tabs.w_con, p.q, n1), *args)
+            timed(f"fwd_rows_solinas_u{word}", lambda t: twopass.fwd_rows(t, plan, n1), c,
+                  lambda: sixstep.fwd_rows(c, ops, tabs.w, tabs.w_con, p.q, n1), *args)
+            timed(f"inv_rows_solinas_u{word}", lambda t: twopass.inv_rows(t, plan, n1), f,
+                  lambda: sixstep.inv_rows(f, ops, tabs.w_inv, tabs.w_inv_con, p.q, n1), *args)
+            timed(f"inv_cols_solinas_u{word}", lambda t: twopass.inv_cols(t, plan, n1), r,
+                  lambda: sixstep.inv_cols(r, ops, tabs.w_inv, tabs.w_inv_con, *plan.inv_consts,
+                                           p.q, n1), *args)
+            if m in (24, 10):
+                l1 = sixstep.rec_split(m)
+                tw = plan.device_tables(dev).twist(l1, False)
+                timed(f"twist_mul_solinas_u{word}", lambda t: rec.twist_mul(t, plan, l1), a,
+                      lambda: sixstep.twist_mul(a, ops, tw, p.q), p, m, l1, batch, word,
+                      f"m{m} batch {batch}")
+            del a, c, f, r
+            torch.cuda.empty_cache()
+        for name, bits, m, batch, lt in SOLINAS_STAGES:
+            p = sol_params(bits, m)
+            plan, word = get_plan(p), int(name[-2:])
+            tabs = plan.device_tables(dev)
+            if name.startswith("r2"):
+                st, tab, kern, plain = (radix2.R2Stage(lt=lt, base=1 << (m - 1 - lt)), "w",
+                                        radix2.r2_stage, radix2.plain_stage)
+            else:
+                st, tab, kern, plain = (radix4.R4Stage(lt=lt), "w_r4", radix4.r4_stage,
+                                        radix4.plain_stage)
+            x = rand_dev(p, batch, lazy=True) if word == 64 else rand_dev(p, batch)
+            args = (tabs.table(tab, word), tabs.table(radix2.con_name(tab, word), word), st, p.q,
+                    word, radix2.consts_at(plan, word))
+            small = x[:LAB_BATCH_CHECK].contiguous()
+            timed(name, lambda t: kern(t, *args), x, lambda: plain(small, *args), p, m, lt, batch,
+                  word, f"m{m} batch {batch}, one stage (lt {lt})",
+                  plain_shape=f"m{m} batch {LAB_BATCH_CHECK}")
+            del x, small
+        print(f"  Solinas against Shoup (the kernel table's rows; K4-K7 at m16 and m10): "
+              f"{json.dumps(rows)}", flush=True)
+        return rows
+
     phase(f"reference-family variants vs plain: every m from each one's least to "
           f"{FAMILY_LAST_M} (batch {BATCH_EVERY_M}), and "
           + ", ".join(f"m{m} batch {b}" for m, b in FAMILY_LARGE) + " at word 64")
@@ -1262,6 +1657,8 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels never launched by the CLI's sweep: {idle}")
 
+    sol_rows = solinas_slice()
+
     phase(f"times (kernels from a CUDA graph of launches, plain versions and API calls "
           f"between CUDA events; min over reps; {smi})")
     table = []
@@ -1270,8 +1667,8 @@ def main() -> int:
               library_ms=None, plain_shape=None):
         """Print one kernel time beside its bound; with record, add it to the
         kernel table."""
-        base = name.rsplit("_", 1)[0]
-        b_ms, b_by = bound(*kernel_work(base, m, n1_log, batch, word))
+        base = name.rsplit("_", 1)[0].removesuffix("_solinas")
+        b_ms, b_by = bound(*kernel_work(base, m, n1_log, batch, word, "_solinas_" in name))
         lib = "" if library_ms is None else f", library {library_ms * 1e3:.1f} us"
         print(f"  {name} {shape}: kernel {k_ms * 1e3:.1f} us, plain {p_ms * 1e3:.1f} us"
               f"{f' ({plain_shape})' if plain_shape else ''}{lib}, bound {b_ms * 1e3:.1f} us "
@@ -1673,6 +2070,7 @@ def main() -> int:
         print(f"  {case} m14 batch {lab_batch}: K1 {k1_ms * 1e3:.1f} us against "
               + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in parts.items()), flush=True)
         del x, small
+    table.extend(sol_rows)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ntt_tpu"))

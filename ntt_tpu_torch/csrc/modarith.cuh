@@ -13,6 +13,15 @@
 // Words are unsigned and wrap mod 2^word exactly as the reference's uint64_t
 // arithmetic does.  Lazy values stay below 4q: q < 2^30 at word 32 and
 // q < 2^62 at word 64 keep 4q below 2^word.
+//
+// The single product of the butterflies is a compile-time choice, a
+// reduction policy (ShoupRed, SolinasRed) that the kernels take as a template
+// argument: ShoupRed is the Shoup product, which reads each twiddle's Shoup
+// constant; SolinasRed is the two-fold Solinas product of the JAX package's
+// NTT_MULMOD=solinas switch (ntt_tpu.modmath.mul_mod_q2_solinas,
+// mul_mod32_q2_solinas), which reads none.  The dual products, the word-56
+// products and the fused final stage's second product stay Shoup under
+// either, as in the JAX package.
 #pragma once
 
 #include <cstdint>
@@ -83,6 +92,60 @@ NTT_HD T shoup_mul_q2(T w, T w_con, T t, T q) {
   return (T)(w * t - mulhi(w_con, t) * q);
 }
 
+// The two-fold Solinas product for q = 2^e - 2^k + 1, 32 < e < 63, 0 < k,
+// 2k + 3 <= e (ntt_tpu.modmath.mul_mod_q2_solinas, bit for bit): the 128-bit
+// product p, A = p >> e (its low 64 bits), the first fold r = A (2^k - 1) +
+// (p mod 2^e) in 128 bits (up to e + k + 3 of them), A2 = the low 32 bits of
+// r >> e, and the second fold (r mod 2^e) + A2 (2^k - 1) mod 2^64.  No
+// quotient and no final subtract: in [0, 2q) for w < q and t < 8q (t < 4q at
+// e = 62).  Cost on sm_90a: fewer multiplies than Shoup's (9 against 12 in a
+// butterfly's SASS) but the folds' shifts by the run-time e and k and their
+// carries make a butterfly 55 instructions against Shoup's 29 (python -m
+// ntt_tpu_torch.sass), so it is slower wherever the butterflies, and not the
+// Shoup constants' bytes, hold a kernel.
+NTT_HD u64 solinas_mul_q2(u64 w, u64 t, int e, int k) {
+  const u64 lo = w * t, hi = mulhi(w, t);
+  const u64 a = (lo >> e) | (hi << (64 - e));
+  const u64 mask = (1ull << e) - 1;
+  const u64 tl = a << k, th = a >> (64 - k);  // A << k, 128 bits
+  const u64 dl = tl - a, dh = th - (tl < a ? 1 : 0);
+  const u64 rl = dl + (lo & mask), rh = dh + (rl < dl ? 1 : 0);
+  const u64 a2 = (u32)((rl >> e) | (rh << (64 - e)));
+  return (rl & mask) + ((a2 << k) - a2);
+}
+
+// At word 32 (ntt_tpu.modmath.mul_mod32_q2_solinas, e <= 29): one 64-bit
+// product, A the low 32 bits of p >> e, the first fold in 64 bits, the
+// second mod 2^32.
+NTT_HD u32 solinas_mul_q2(u32 w, u32 t, int e, int k) {
+  const u64 p = (u64)w * t;
+  const u64 a = (u32)(p >> e);
+  const u64 r = (a << k) - a + (p & ((1ull << e) - 1));
+  const u32 a2 = (u32)(r >> e);
+  return ((u32)r & ((1u << e) - 1)) + ((a2 << k) - a2);
+}
+
+// The reduction policies of the single product w*t of a twiddle w and its
+// Shoup constant w_con: mul(w, w_con, t, q) in [0, 2q).  kCon says whether
+// the product reads w_con; a kernel that instantiates SolinasRed loads no
+// Shoup constant of a single product.
+struct ShoupRed {
+  static constexpr bool kCon = true;
+  template <typename T>
+  NTT_HD T mul(T w, T w_con, T t, T q) const {
+    return shoup_mul_q2<T>(w, w_con, t, q);
+  }
+};
+
+struct SolinasRed {
+  static constexpr bool kCon = false;
+  int e, k;  // q = 2^e - 2^k + 1
+  template <typename T>
+  NTT_HD T mul(T w, T, T t, T) const {
+    return solinas_mul_q2(w, t, e, k);
+  }
+};
+
 // Dual Shoup product t1*w1 + t2*w2 with ONE quotient, the high word of the
 // 128-bit sum c1*t1 + c2*t2 (ntt_tpu.modmath.shoup_dbl_mul_q2): in [0, 2q)
 // for t1 + t2 within the radix-4 bound.  Two separate products would give
@@ -150,21 +213,21 @@ struct Word<56> {
 };
 
 // Harvey forward butterfly: inputs < 4q, outputs < 4q.
-template <typename T>
-NTT_HD void fwd_bfly(T& x, T& y, T w, T w_con, T q) {
+template <typename T, class Red = ShoupRed>
+NTT_HD void fwd_bfly(T& x, T& y, T w, T w_con, T q, Red red = Red()) {
   const T x1 = reduce_4q_to_2q<T>(x, q);
-  const T t = shoup_mul_q2<T>(w, w_con, y, q);
+  const T t = red.mul(w, w_con, y, q);
   x = (T)(x1 + t);
   y = (T)(x1 + 2 * q - t);
 }
 
 // Harvey inverse (Gentleman-Sande) butterfly: inputs < 2q, outputs < 2q.
-template <typename T>
-NTT_HD void bkw_bfly(T& x, T& y, T w, T w_con, T q) {
+template <typename T, class Red = ShoupRed>
+NTT_HD void bkw_bfly(T& x, T& y, T w, T w_con, T q, Red red = Red()) {
   const T s = reduce_4q_to_2q<T>((T)(x + y), q);
   const T d = (T)(x + 2 * q - y);
   x = s;
-  y = shoup_mul_q2<T>(w, w_con, d, q);
+  y = red.mul(w, w_con, d, q);
 }
 
 // Constants of the fused final inverse stage.  con = con_lo + con_hi * 2^word
@@ -177,12 +240,13 @@ struct FinalConsts {
 };
 
 // Final inverse stage with n^-1 fused (src/ntt_reference.c:55-65 of the
-// reference); strict outputs.
-template <typename T>
-NTT_HD void bkw_final(T& x, T& y, const FinalConsts<T>& f, T q) {
+// reference); strict outputs.  Red reduces the n^-1 product; the second
+// product keeps its own quotient from con, under either policy.
+template <typename T, class Red = ShoupRed>
+NTT_HD void bkw_final(T& x, T& y, const FinalConsts<T>& f, T q, Red red = Red()) {
   const T x1 = (T)(x + y);
   const T t = (T)(x + 2 * q - y);
-  const T nx = reduce_2q_to_q<T>(shoup_mul_q2<T>(f.n_inv, f.n_inv_con, x1, q), q);
+  const T nx = reduce_2q_to_q<T>(red.mul(f.n_inv, f.n_inv_con, x1, q), q);
   T big_q = mulhi(f.con_lo, t);
   if (f.con_hi) big_q = (T)(big_q + t);
   x = nx;

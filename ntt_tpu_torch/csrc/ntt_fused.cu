@@ -38,6 +38,13 @@
 // butterflies (29 SASS instructions each, 57 for the fused final stage)
 // against device memory at one block an SM: one polynomial's loads overlap
 // only its own arithmetic.
+//
+// Each kernel is built twice, once a reduction policy of modarith.cuh: with
+// ShoupRed (the default) and with SolinasRed, the JAX package's
+// NTT_MULMOD=solinas product for q = 2^e - 2^k + 1, which reads no Shoup
+// constant (half the twiddle bytes) and keeps the Shoup quotient only in the
+// fused final stage's second product.  The wrappers pick the instantiation;
+// no butterfly branches on it at run time.
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
@@ -45,24 +52,24 @@
 
 namespace ntt {
 
-template <typename T>
+template <typename T, class Red = ShoupRed>
 int launch_fwd(const void* in, void* out, const void* w, const void* w_con, u64 q,
-               int batch, int logn, int strict, void* stream) {
+               int batch, int logn, int strict, void* stream, Red red = Red()) {
   return launch_rounds<T, false>(in, out, w, w_con, q, FinalConsts<T>{}, batch, logn, strict,
-                                 stream);
+                                 stream, red);
 }
 
-template <typename T>
+template <typename T, class Red = ShoupRed>
 int launch_inv(const void* in, void* out, const void* w, const void* w_con, u64 q,
                u64 n_inv, u64 n_inv_con, u64 f_tmp, u64 f_con_lo, int f_con_hi, int batch,
-               int logn, void* stream) {
+               int logn, void* stream, Red red = Red()) {
   FinalConsts<T> fc;
   fc.n_inv = (T)n_inv;
   fc.n_inv_con = (T)n_inv_con;
   fc.tmp = (T)f_tmp;
   fc.con_lo = (T)f_con_lo;
   fc.con_hi = f_con_hi;
-  return launch_rounds<T, true>(in, out, w, w_con, q, fc, batch, logn, 0, stream);
+  return launch_rounds<T, true>(in, out, w, w_con, q, fc, batch, logn, 0, stream, red);
 }
 
 }  // namespace ntt
@@ -70,7 +77,9 @@ int launch_inv(const void* in, void* out, const void* w, const void* w_con, u64 
 // Plain C interface, loaded with ctypes by ntt_tpu_torch/native.py.  Each
 // launcher enqueues one launch on `stream` (batch blocks of one polynomial
 // each, N = 2^logn) and returns the cudaError_t of the launch; a nonzero
-// value means the kernel never ran.
+// value means the kernel never ran.  The _solinas_ entry points launch the
+// SolinasRed instantiation for q = 2^e - 2^k + 1 (the NTT_MULMOD=solinas
+// switch): they take (e, k) and read no w_con (which may be null).
 extern "C" {
 
 const char* ntt_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
@@ -104,5 +113,27 @@ int ntt_inv_fused_u64(const void* in, void* out, const void* w, const void* w_co
   return ntt::launch_inv<ntt::u64>(in, out, w, w_con, q, n_inv, n_inv_con, f_tmp,
                                    f_con_lo, f_con_hi, batch, logn, stream);
 }
+
+#define NTT_FUSED_SOLINAS(W)                                                              \
+  int ntt_fwd_fused_solinas_u##W(const void* in, void* out, const void* w, const void* w_con, \
+                                 unsigned long long q, int batch, int logn, int strict,    \
+                                 int e, int k, void* stream) {                             \
+    return ntt::launch_fwd<ntt::u##W>(in, out, w, w_con, q, batch, logn, strict, stream,   \
+                                      ntt::SolinasRed{e, k});                              \
+  }                                                                                        \
+  int ntt_inv_fused_solinas_u##W(const void* in, void* out, const void* w, const void* w_con, \
+                                 unsigned long long q, unsigned long long n_inv,           \
+                                 unsigned long long n_inv_con, unsigned long long f_tmp,   \
+                                 unsigned long long f_con_lo, int f_con_hi, int batch,     \
+                                 int logn, int e, int k, void* stream) {                   \
+    return ntt::launch_inv<ntt::u##W>(in, out, w, w_con, q, n_inv, n_inv_con, f_tmp,       \
+                                      f_con_lo, f_con_hi, batch, logn, stream,             \
+                                      ntt::SolinasRed{e, k});                              \
+  }
+
+NTT_FUSED_SOLINAS(32)
+NTT_FUSED_SOLINAS(64)
+
+#undef NTT_FUSED_SOLINAS
 
 }  // extern "C"

@@ -52,6 +52,8 @@
 //   * Blocks are numbered batch-fastest, so the blocks running together on
 //     the card work on the same rows of different polynomials and share the
 //     row twiddles in L2.
+// Each is built with both reduction policies of modarith.cuh (ShoupRed,
+// SolinasRed; see ntt_fused.cu), 32 instantiations each.
 // All four run the register rounds of rounds.cuh on their tile (K4 / K5
 // forward, K6 / K7 inverse, as K1 / K2 run them on a whole polynomial): each
 // thread holds 2^K words of one column or row and runs K stages on them with
@@ -121,34 +123,34 @@ struct ColRounds {
 // K4: the column stages of one (N1, TC) tile in rounds of K, loaded from
 // device memory into the first round's registers and stored from the last
 // round's (row segments of TC words, whole sectors), lazy (< 4q).
-template <typename T, int K>
+template <typename T, int K, class Red>
 __global__ void __launch_bounds__(kTileThreads, TwoPass<T>::kMinBlocks)
 fwd_cols_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
                 const T* __restrict__ w_con, T q, int batch, int n1_log, int n2_log,
-                int tc_log, int pitch) {
+                int tc_log, int pitch, Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const size_t tile = ((size_t)(blockIdx.x % batch) << (n1_log + n2_log)) +
                       ((size_t)(blockIdx.x / batch) << tc_log);
   const ColRounds<T> tl{n1_log, tc_log, n2_log, pitch};
-  tile_forward<T, K>(tl, in + tile, out + tile, sm, w, w_con, q);
+  tile_forward<T, K>(tl, in + tile, out + tile, sm, w, w_con, q, red);
 }
 
 // K7: the inverse column stages of one (N1, TC) tile in rounds of K, from
 // the last down to the fused final stage (n^-1 folded in), loaded from device
 // memory into the first round's registers and stored, strict and in the
 // standard order, from the last round's (row segments of TC words).
-template <typename T, int K>
+template <typename T, int K, class Red>
 __global__ void __launch_bounds__(kTileThreads, TwoPass<T>::kMinBlocks)
 inv_cols_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
                 const T* __restrict__ w_con, T q, FinalConsts<T> fc, int batch, int n1_log,
-                int n2_log, int tc_log, int pitch) {
+                int n2_log, int tc_log, int pitch, Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const size_t tile = ((size_t)(blockIdx.x % batch) << (n1_log + n2_log)) +
                       ((size_t)(blockIdx.x / batch) << tc_log);
   const ColRounds<T> tl{n1_log, tc_log, n2_log, pitch};
-  tile_inverse<T, K>(tl, in + tile, out + tile, sm, w, w_con, q, fc, true);
+  tile_inverse<T, K>(tl, in + tile, out + tile, sm, w, w_con, q, red, fc, true);
 }
 
 // ---------------------------------------------------------------------------
@@ -180,11 +182,11 @@ struct RowRounds {
 // buffer, from which the tile leaves in coalesced pieces, with the strict
 // 4q -> q reduce on the way: 16-byte stores of each row in the (N1, N2)
 // layout, or in the (N2, N1) layout TR consecutive words a column.
-template <typename T, int K>
+template <typename T, int K, class Red>
 __global__ void __launch_bounds__(kTileThreads, TwoPass<T>::kMinBlocks)
 fwd_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
                 const T* __restrict__ w_con, T q, int batch, int n1_log, int n2_log,
-                int tr_log, int pitch, int strict, int out_transposed) {
+                int tr_log, int pitch, int strict, int out_transposed, Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const size_t poly = (size_t)(blockIdx.x % batch) << (n1_log + n2_log);
@@ -195,7 +197,7 @@ fwd_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
   if (n2_log == 0) {  // rows of one word: no stages
     for (int i = threadIdx.x; i < count; i += blockDim.x) sm[tl.sm(i, 0)] = in[tile + i];
   } else {
-    tile_forward<T, K>(tl, in + tile, nullptr, sm, w, w_con, q);
+    tile_forward<T, K>(tl, in + tile, nullptr, sm, w, w_con, q, red);
   }
   __syncthreads();
   typedef Vec16<T> V;
@@ -234,11 +236,11 @@ fwd_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
 // is first staged into the exchange buffer, TR consecutive words a column,
 // and the first round reads it there.  The last round stores from registers
 // into the (N1, N2) layout, consecutive words across a warp.
-template <typename T, int K>
+template <typename T, int K, class Red>
 __global__ void __launch_bounds__(kTileThreads, TwoPass<T>::kMinBlocks)
 inv_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
                 const T* __restrict__ w_con, T q, int batch, int n1_log, int n2_log,
-                int tr_log, int pitch, int in_transposed) {
+                int tr_log, int pitch, int in_transposed, Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const size_t poly = (size_t)(blockIdx.x % batch) << (n1_log + n2_log);
@@ -274,7 +276,7 @@ inv_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
     __syncthreads();
     gin = nullptr;
   }
-  tile_inverse<T, K>(tl, gin, out + tile, sm, w, w_con, q, FinalConsts<T>(), false);
+  tile_inverse<T, K>(tl, gin, out + tile, sm, w, w_con, q, red, FinalConsts<T>(), false);
 }
 
 // ---------------------------------------------------------------------------
@@ -324,13 +326,14 @@ size_t round_smem(int logn, int vlog, int& pitch) {
   return sizeof(T) * ((size_t)pitch << vlog);
 }
 
-#define NTT_BY_LOG_R(KERNEL, T, LOG_R)                                    \
-  ((LOG_R) == 1 ? KERNEL<T, 1> : (LOG_R) == 2 ? KERNEL<T, 2>            \
-                               : (LOG_R) == 3 ? KERNEL<T, 3> : KERNEL<T, 4>)
+#define NTT_BY_LOG_R(KERNEL, T, LOG_R)                                                \
+  ((LOG_R) == 1 ? KERNEL<T, 1, Red> : (LOG_R) == 2 ? KERNEL<T, 2, Red>              \
+                                    : (LOG_R) == 3 ? KERNEL<T, 3, Red> : KERNEL<T, 4, Red>)
 
-template <typename T>
+template <typename T, class Red = ShoupRed>
 int launch_fwd_cols(const void* in, void* out, const void* w, const void* w_con,
-                    u64 q, int batch, int n1_log, int n2_log, int tc_log, void* stream) {
+                    u64 q, int batch, int n1_log, int n2_log, int tc_log, void* stream,
+                    Red red = Red()) {
   const long long blocks = pass_blocks(batch, n1_log, n2_log, tc_log, n2_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
   int pitch;
@@ -339,14 +342,14 @@ int launch_fwd_cols(const void* in, void* out, const void* w, const void* w_con,
   return launch_blocks(NTT_BY_LOG_R(fwd_cols_kernel, T, round_log(n1_log)), (int)blocks,
                        round_threads(n1_log, tc_log), smem,
                        stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q,
-                       batch, n1_log, n2_log, tc_log, pitch);
+                       batch, n1_log, n2_log, tc_log, pitch, red);
 }
 
-template <typename T>
+template <typename T, class Red = ShoupRed>
 int launch_inv_cols(const void* in, void* out, const void* w, const void* w_con,
                     u64 q, u64 n_inv, u64 n_inv_con, u64 f_tmp, u64 f_con_lo,
                     int f_con_hi, int batch, int n1_log, int n2_log, int tc_log,
-                    void* stream) {
+                    void* stream, Red red = Red()) {
   const long long blocks = pass_blocks(batch, n1_log, n2_log, tc_log, n2_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
   int pitch;
@@ -356,13 +359,13 @@ int launch_inv_cols(const void* in, void* out, const void* w, const void* w_con,
   return launch_blocks(NTT_BY_LOG_R(inv_cols_kernel, T, round_log(n1_log)), (int)blocks,
                        round_threads(n1_log, tc_log), smem,
                        stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q, fc,
-                       batch, n1_log, n2_log, tc_log, pitch);
+                       batch, n1_log, n2_log, tc_log, pitch, red);
 }
 
-template <typename T>
+template <typename T, class Red = ShoupRed>
 int launch_fwd_rows(const void* in, void* out, const void* w, const void* w_con,
                     u64 q, int batch, int n1_log, int n2_log, int tr_log, int strict,
-                    int out_transposed, void* stream) {
+                    int out_transposed, void* stream, Red red = Red()) {
   const long long blocks = pass_blocks(batch, n1_log, n2_log, tr_log, n1_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
   int pitch;
@@ -371,13 +374,13 @@ int launch_fwd_rows(const void* in, void* out, const void* w, const void* w_con,
   return launch_blocks(NTT_BY_LOG_R(fwd_rows_kernel, T, round_log(n2_log)), (int)blocks,
                        round_threads(n2_log, tr_log), smem,
                        stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q,
-                       batch, n1_log, n2_log, tr_log, pitch, strict, out_transposed);
+                       batch, n1_log, n2_log, tr_log, pitch, strict, out_transposed, red);
 }
 
-template <typename T>
+template <typename T, class Red = ShoupRed>
 int launch_inv_rows(const void* in, void* out, const void* w, const void* w_con,
                     u64 q, int batch, int n1_log, int n2_log, int tr_log,
-                    int in_transposed, void* stream) {
+                    int in_transposed, void* stream, Red red = Red()) {
   const long long blocks = pass_blocks(batch, n1_log, n2_log, tr_log, n1_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
   int pitch;
@@ -386,7 +389,7 @@ int launch_inv_rows(const void* in, void* out, const void* w, const void* w_con,
   return launch_blocks(NTT_BY_LOG_R(inv_rows_kernel, T, round_log(n2_log)), (int)blocks,
                        round_threads(n2_log, tr_log), smem,
                        stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q,
-                       batch, n1_log, n2_log, tr_log, pitch, in_transposed);
+                       batch, n1_log, n2_log, tr_log, pitch, in_transposed, red);
 }
 
 #undef NTT_BY_LOG_R
@@ -435,5 +438,50 @@ NTT_TWOPASS_ENTRIES(32, ntt::u32)
 NTT_TWOPASS_ENTRIES(64, ntt::u64)
 
 #undef NTT_TWOPASS_ENTRIES
+
+// The SolinasRed instantiations (see ntt_fused.cu): the same arguments with
+// (e, k) before the stream; w_con is not read.
+#define NTT_TWOPASS_SOLINAS(W, T)                                                  \
+  int ntt_fwd_cols_solinas_u##W(const void* in, void* out, const void* w,        \
+                                const void* w_con, unsigned long long q,         \
+                                int batch, int n1_log, int n2_log, int tc_log,   \
+                                int e, int k, void* stream) {                    \
+    return ntt::launch_fwd_cols<T>(in, out, w, w_con, q, batch, n1_log, n2_log,  \
+                                   tc_log, stream, ntt::SolinasRed{e, k});       \
+  }                                                                              \
+  int ntt_fwd_rows_solinas_u##W(const void* in, void* out, const void* w,        \
+                                const void* w_con, unsigned long long q,         \
+                                int batch, int n1_log, int n2_log, int tr_log,   \
+                                int strict, int out_transposed, int e, int k,    \
+                                void* stream) {                                  \
+    return ntt::launch_fwd_rows<T>(in, out, w, w_con, q, batch, n1_log, n2_log,  \
+                                   tr_log, strict, out_transposed, stream,       \
+                                   ntt::SolinasRed{e, k});                       \
+  }                                                                              \
+  int ntt_inv_rows_solinas_u##W(const void* in, void* out, const void* w,        \
+                                const void* w_con, unsigned long long q,         \
+                                int batch, int n1_log, int n2_log, int tr_log,   \
+                                int in_transposed, int e, int k, void* stream) { \
+    return ntt::launch_inv_rows<T>(in, out, w, w_con, q, batch, n1_log, n2_log,  \
+                                   tr_log, in_transposed, stream,                \
+                                   ntt::SolinasRed{e, k});                       \
+  }                                                                              \
+  int ntt_inv_cols_solinas_u##W(const void* in, void* out, const void* w,        \
+                                const void* w_con, unsigned long long q,         \
+                                unsigned long long n_inv,                        \
+                                unsigned long long n_inv_con,                    \
+                                unsigned long long f_tmp,                        \
+                                unsigned long long f_con_lo, int f_con_hi,       \
+                                int batch, int n1_log, int n2_log, int tc_log,   \
+                                int e, int k, void* stream) {                    \
+    return ntt::launch_inv_cols<T>(in, out, w, w_con, q, n_inv, n_inv_con,       \
+                                   f_tmp, f_con_lo, f_con_hi, batch, n1_log,     \
+                                   n2_log, tc_log, stream, ntt::SolinasRed{e, k}); \
+  }
+
+NTT_TWOPASS_SOLINAS(32, ntt::u32)
+NTT_TWOPASS_SOLINAS(64, ntt::u64)
+
+#undef NTT_TWOPASS_SOLINAS
 
 }  // extern "C"

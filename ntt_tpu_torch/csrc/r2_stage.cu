@@ -24,7 +24,11 @@
 // butterflies, so the loads of x and of y are each coalesced wherever t >= 32
 // and a warp's twiddle reads fall on one or a few entries (read through the
 // read-only cache).  A transform costs log2 N passes over device memory where
-// K1 costs one; holding it on chip across stages is later work.
+// K1 costs one; holding it on chip across stages is later work.  Under the
+// NTT_MULMOD=solinas switch every single product (the butterflies', the n^-1
+// products of the final modes and of post) takes the Solinas form, the
+// SolinasRed instantiation of modarith.cuh, which reads no con table; the
+// final stages' second product keeps its wide Shoup constant.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -66,11 +70,11 @@ __device__ __forceinline__ int tail_group(int g, int perm) {
 // x' = n_inv * guard(u + y), without the lazy reduction; y' = scaled_r *
 // (u + 2q - y), scaled_r = n_inv * w_inv[1] with its possibly wide constant;
 // then both 2q -> q.
-template <typename T>
-__device__ __forceinline__ void seal_final(T& x, T& y, const FinalConsts<T>& f, T q) {
+template <typename T, class Red>
+__device__ __forceinline__ void seal_final(T& x, T& y, const FinalConsts<T>& f, T q, Red red) {
   const T u = cond_sub<T>(x, (T)(2 * q));
   const T s = cond_sub<T>((T)(u + y), (T)(2 * q));
-  const T nx = shoup_mul_q2<T>(f.n_inv, f.n_inv_con, s, q);
+  const T nx = red.mul(f.n_inv, f.n_inv_con, s, q);
   const T d = (T)(u + 2 * q - y);
   T big_q = mulhi(f.con_lo, d);
   if (f.con_hi) big_q = (T)(big_q + d);
@@ -78,10 +82,10 @@ __device__ __forceinline__ void seal_final(T& x, T& y, const FinalConsts<T>& f, 
   y = reduce_2q_to_q<T>((T)(f.tmp * d - big_q * q), q);
 }
 
-template <typename T>
+template <typename T, class Red>
 __global__ void __launch_bounds__(kR2Threads)
 r2_stage_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ tab,
-                const T* __restrict__ con, R2Args<T> s) {
+                const T* __restrict__ con, R2Args<T> s, Red red) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const int half_log = s.logn - 1;
   const int t_mask = (1 << s.lt) - 1;
@@ -100,35 +104,35 @@ r2_stage_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
     if (s.mode == kR2Fwd || s.mode == kR2Bkw) {
       const long long k = s.base + (long long)tail_group(ix.g, s.perm) * s.gs +
                           (long long)(j & t_mask) * s.js;
-      const T w = __ldg(tab + k), wc = __ldg(con + k);
+      const T w = __ldg(tab + k), wc = Red::kCon ? __ldg(con + k) : 0;
       if (s.mode == kR2Fwd) {
-        fwd_bfly<T>(x, y, w, wc, q);
+        fwd_bfly<T>(x, y, w, wc, q, red);
       } else {
-        bkw_bfly<T>(x, y, w, wc, q);
+        bkw_bfly<T>(x, y, w, wc, q, red);
       }
     } else if (s.mode == kR2Final) {
-      bkw_final<T>(x, y, s.f, q);
+      bkw_final<T>(x, y, s.f, q, red);
     } else {
-      seal_final<T>(x, y, s.f, q);
+      seal_final<T>(x, y, s.f, q, red);
     }
     if (s.post == kR2Post4qToQ) {
       x = reduce_4q_to_q<T>(x, q);
       y = reduce_4q_to_q<T>(y, q);
     } else if (s.post == kR2PostNinv) {
-      x = reduce_2q_to_q<T>(shoup_mul_q2<T>(s.f.n_inv, s.f.n_inv_con, x, q), q);
-      y = reduce_2q_to_q<T>(shoup_mul_q2<T>(s.f.n_inv, s.f.n_inv_con, y, q), q);
+      x = reduce_2q_to_q<T>(red.mul(s.f.n_inv, s.f.n_inv_con, x, q), q);
+      y = reduce_2q_to_q<T>(red.mul(s.f.n_inv, s.f.n_inv_con, y, q), q);
     }
     out[off + ix.i0] = x;
     out[off + ix.i1] = y;
   }
 }
 
-template <typename T>
+template <typename T, class Red = ShoupRed>
 int launch_r2_stage(const void* in, void* out, const void* tab, const void* con,
                     unsigned long long q, long long rows, int logn, int lt, int mode, int pre,
                     int post, long long base, int gs, int js, int perm, unsigned long long n_inv,
                     unsigned long long n_inv_con, unsigned long long f_tmp,
-                    unsigned long long f_con_lo, int f_con_hi, void* stream) {
+                    unsigned long long f_con_lo, int f_con_hi, void* stream, Red red = Red()) {
   if (rows < 1 || logn < 1 || logn > 30 || lt < 0 || lt >= logn || mode < 0 || mode > 3 ||
       pre < 0 || pre > 1 || post < 0 || post > 2 || perm < 0 || perm > 2 || base < 0 ||
       gs < 0 || js < 0 || ((mode == kR2Final || mode == kR2SealFinal) && lt != logn - 1))
@@ -152,8 +156,8 @@ int launch_r2_stage(const void* in, void* out, const void* tab, const void* con,
   s.f.con_hi = f_con_hi;
   long long blocks = (s.count + kR2Threads - 1) / kR2Threads;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  r2_stage_kernel<T><<<(unsigned)blocks, kR2Threads, 0, (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, (const T*)tab, (const T*)con, s);
+  r2_stage_kernel<T, Red><<<(unsigned)blocks, kR2Threads, 0, (cudaStream_t)stream>>>(
+      (const T*)in, (T*)out, (const T*)tab, (const T*)con, s, red);
   return (int)cudaGetLastError();
 }
 
@@ -185,5 +189,25 @@ int ntt_r2_stage_u64(const void* in, void* out, const void* tab, const void* con
                                         base, gs, js, perm, n_inv, n_inv_con, f_tmp, f_con_lo,
                                         f_con_hi, stream);
 }
+
+// The SolinasRed instantiations: (e, k) before the stream; con is not read
+// (it may be null).
+#define NTT_R2_SOLINAS(W)                                                                      \
+  int ntt_r2_stage_solinas_u##W(const void* in, void* out, const void* tab, const void* con,   \
+                                unsigned long long q, long long rows, int logn, int lt,        \
+                                int mode, int pre, int post, long long base, int gs, int js,   \
+                                int perm, unsigned long long n_inv,                            \
+                                unsigned long long n_inv_con, unsigned long long f_tmp,        \
+                                unsigned long long f_con_lo, int f_con_hi, int e, int k,       \
+                                void* stream) {                                                \
+    return ntt::launch_r2_stage<ntt::u##W>(in, out, tab, con, q, rows, logn, lt, mode, pre,    \
+                                           post, base, gs, js, perm, n_inv, n_inv_con, f_tmp,  \
+                                           f_con_lo, f_con_hi, stream, ntt::SolinasRed{e, k}); \
+  }
+
+NTT_R2_SOLINAS(32)
+NTT_R2_SOLINAS(64)
+
+#undef NTT_R2_SOLINAS
 
 }  // extern "C"

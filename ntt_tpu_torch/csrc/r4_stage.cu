@@ -29,6 +29,10 @@
 // words in a grid-stride loop, neighbouring threads on neighbouring j within a
 // group (coalesced wherever t >= 32), the five twiddle pairs read through the
 // read-only cache.  Holding a transform on chip across stages is later work.
+// Under the NTT_MULMOD=solinas switch the single products at words 32 and 64
+// (w0's, the radix-2 sweeps', the n^-1 scale) take the Solinas form, the
+// SolinasRed instantiation of modarith.cuh, which reads no Shoup constant for
+// them; the dual products and word 56 stay Shoup, as in the JAX package.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -55,14 +59,28 @@ __device__ __forceinline__ long long lane_perm(long long g) {
   return (g & ~7ll) | ((j & 1) ? 4 + (j >> 1) : (j >> 1));
 }
 
-template <int W>
+// The single product: Red's at words 32 and 64, Shoup's at word 56 always.
+template <int W, class Red>
+__device__ __forceinline__ typename Word<W>::T mul1(Red red, typename Word<W>::T w,
+                                                    typename Word<W>::T c,
+                                                    typename Word<W>::T t,
+                                                    typename Word<W>::T q) {
+  if constexpr (W == 56) {
+    return Word<W>::mul(w, c, t, q);
+  } else {
+    return red.mul(w, c, t, q);
+  }
+}
+
+template <int W, class Red>
 __device__ __forceinline__ void r4_fwd(typename Word<W>::T v[4], const typename Word<W>::T w[5],
-                                       const typename Word<W>::T c[5], typename Word<W>::T q) {
+                                       const typename Word<W>::T c[5], typename Word<W>::T q,
+                                       Red red) {
   typedef typename Word<W>::T T;
   const T y1 = Word<W>::dbl(w[1], c[1], w[2], c[2], v[1], v[3], q);
   const T y2 = Word<W>::dbl(w[3], c[3], w[4], c[4], v[1], v[3], q);
   const T t1 = cond_sub<T>(v[0], (T)(4 * q));
-  const T t2 = Word<W>::mul(w[0], c[0], v[2], q);
+  const T t2 = mul1<W>(red, w[0], c[0], v[2], q);
   const T s = (T)(t1 + t2), d = (T)(t1 - t2);
   v[0] = (T)(s + y1);
   v[1] = (T)(s + 2 * q - y1);
@@ -70,33 +88,36 @@ __device__ __forceinline__ void r4_fwd(typename Word<W>::T v[4], const typename 
   v[3] = (T)(d + 4 * q - y2);
 }
 
-template <int W>
+template <int W, class Red>
 __device__ __forceinline__ void r4_inv(typename Word<W>::T v[4], const typename Word<W>::T w[5],
-                                       const typename Word<W>::T c[5], typename Word<W>::T q) {
+                                       const typename Word<W>::T c[5], typename Word<W>::T q,
+                                       Red red) {
   typedef typename Word<W>::T T;
   const T t0 = (T)(v[2] + v[3]), t1 = (T)(v[0] + v[1]);
   const T t2 = (T)(v[0] + 4 * q - v[1]), t3 = (T)(v[2] + 4 * q - v[3]);
   v[0] = reduce_4q_to_2q<T>(cond_sub<T>((T)(t1 + t0), (T)(4 * q)), q);
-  v[2] = reduce_2q_to_q<T>(Word<W>::mul(w[0], c[0], (T)(t1 + 4 * q - t0), q), q);
+  v[2] = reduce_2q_to_q<T>(mul1<W>(red, w[0], c[0], (T)(t1 + 4 * q - t0), q), q);
   v[1] = Word<W>::dbl(w[1], c[1], w[3], c[3], t2, t3, q);
   v[3] = Word<W>::dbl(w[2], c[2], w[4], c[4], t2, t3, q);
 }
 
-template <int W>
+template <int W, class Red>
 __device__ __forceinline__ typename Word<W>::T r4_post(typename Word<W>::T v,
-                                                       const R4Args<typename Word<W>::T>& s) {
+                                                       const R4Args<typename Word<W>::T>& s,
+                                                       Red red) {
   typedef typename Word<W>::T T;
   if (s.post == 1) return reduce_2q_to_q<T>(reduce_4q_to_2q<T>(cond_sub<T>(v, (T)(4 * s.q)), s.q),
                                             s.q);
-  if (s.post == 2) return reduce_2q_to_q<T>(Word<W>::mul(s.n_inv, s.n_inv_con, v, s.q), s.q);
+  if (s.post == 2) return reduce_2q_to_q<T>(mul1<W>(red, s.n_inv, s.n_inv_con, v, s.q), s.q);
   return v;
 }
 
-template <int W>
+template <int W, class Red>
 __global__ void __launch_bounds__(kR4Threads)
 r4_stage_kernel(const typename Word<W>::T* __restrict__ in, typename Word<W>::T* __restrict__ out,
                 const typename Word<W>::T* __restrict__ tab,
-                const typename Word<W>::T* __restrict__ con, R4Args<typename Word<W>::T> s) {
+                const typename Word<W>::T* __restrict__ con, R4Args<typename Word<W>::T> s,
+                Red red) {
   typedef typename Word<W>::T T;
   const long long stride = (long long)gridDim.x * blockDim.x;
   const bool radix4 = s.mode == kR4Fwd || s.mode == kR4Inv;
@@ -114,19 +135,19 @@ r4_stage_kernel(const typename Word<W>::T* __restrict__ in, typename Word<W>::T*
       const T y = in[i1];
       if (s.pre == 2) x = cond_sub<T>(x, (T)(4 * q));
       const long long k = s.base + g * s.step;
-      const T w = __ldg(tab + k), wc = __ldg(con + k);
+      const T w = __ldg(tab + k), wc = Red::kCon ? __ldg(con + k) : 0;
       T nx, ny;
       if (s.mode == kR2SweepFwd) {
         const T x1 = reduce_4q_to_2q<T>(x, q);
-        const T tt = Word<W>::mul(w, wc, y, q);
+        const T tt = mul1<W>(red, w, wc, y, q);
         nx = (T)(x1 + tt);
         ny = (T)(x1 + 2 * q - tt);
       } else {
         nx = reduce_4q_to_2q<T>((T)(x + y), q);
-        ny = Word<W>::mul(w, wc, (T)(x + 2 * q - y), q);
+        ny = mul1<W>(red, w, wc, (T)(x + 2 * q - y), q);
       }
-      out[i0] = r4_post<W>(nx, s);
-      out[i1] = r4_post<W>(ny, s);
+      out[i0] = r4_post<W>(nx, s, red);
+      out[i1] = r4_post<W>(ny, s, red);
       continue;
     }
     const long long g_in = s.perm == 1 ? lane_perm(g) : g;
@@ -157,23 +178,24 @@ r4_stage_kernel(const typename Word<W>::T* __restrict__ in, typename Word<W>::T*
 #pragma unroll
     for (int k = 0; k < 5; ++k) {
       w[k] = __ldg(tab + idx[k]);
-      c[k] = __ldg(con + idx[k]);
+      c[k] = (k > 0 || Red::kCon) ? __ldg(con + idx[k]) : 0;  // w0's: a single product
     }
     if (s.mode == kR4Fwd) {
-      r4_fwd<W>(v, w, c, q);
+      r4_fwd<W>(v, w, c, q, red);
     } else {
-      r4_inv<W>(v, w, c, q);
+      r4_inv<W>(v, w, c, q, red);
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) out[dst + ((long long)k << s.lt)] = r4_post<W>(v[k], s);
+    for (int k = 0; k < 4; ++k) out[dst + ((long long)k << s.lt)] = r4_post<W>(v[k], s, red);
   }
 }
 
-template <int W>
+template <int W, class Red = ShoupRed>
 int launch_r4_stage(const void* in, void* out, const void* tab, const void* con,
                     unsigned long long q, long long rows, int logn, int lt, int mode, int pre,
                     int post, int tw, long long base, int step, int perm,
-                    unsigned long long n_inv, unsigned long long n_inv_con, void* stream) {
+                    unsigned long long n_inv, unsigned long long n_inv_con, void* stream,
+                    Red red = Red()) {
   typedef typename Word<W>::T T;
   const bool radix4 = mode == kR4Fwd || mode == kR4Inv;
   const int per_log = logn - (radix4 ? 2 : 1);
@@ -198,8 +220,8 @@ int launch_r4_stage(const void* in, void* out, const void* tab, const void* con,
   s.n_inv_con = (T)n_inv_con;
   long long blocks = (s.count + kR4Threads - 1) / kR4Threads;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  r4_stage_kernel<W><<<(unsigned)blocks, kR4Threads, 0, (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, (const T*)tab, (const T*)con, s);
+  r4_stage_kernel<W, Red><<<(unsigned)blocks, kR4Threads, 0, (cudaStream_t)stream>>>(
+      (const T*)in, (T*)out, (const T*)tab, (const T*)con, s, red);
   return (int)cudaGetLastError();
 }
 
@@ -222,5 +244,24 @@ extern "C" {
 NTT_R4_STAGE_ENTRY(ntt_r4_stage_u32, 32)
 NTT_R4_STAGE_ENTRY(ntt_r4_stage_u64, 64)
 NTT_R4_STAGE_ENTRY(ntt_r4_stage_w56, 56)
+
+#undef NTT_R4_STAGE_ENTRY
+
+// The SolinasRed instantiations at words 32 and 64: (e, k) before the
+// stream; con is still read, for the dual products.
+#define NTT_R4_STAGE_SOLINAS(name, W)                                                        \
+  int name(const void* in, void* out, const void* tab, const void* con, unsigned long long q, \
+           long long rows, int logn, int lt, int mode, int pre, int post, int tw,            \
+           long long base, int step, int perm, unsigned long long n_inv,                     \
+           unsigned long long n_inv_con, int e, int k, void* stream) {                       \
+    return ntt::launch_r4_stage<W>(in, out, tab, con, q, rows, logn, lt, mode, pre, post, tw, \
+                                   base, step, perm, n_inv, n_inv_con, stream,               \
+                                   ntt::SolinasRed{e, k});                                   \
+  }
+
+NTT_R4_STAGE_SOLINAS(ntt_r4_stage_solinas_u32, 32)
+NTT_R4_STAGE_SOLINAS(ntt_r4_stage_solinas_u64, 64)
+
+#undef NTT_R4_STAGE_SOLINAS
 
 }  // extern "C"

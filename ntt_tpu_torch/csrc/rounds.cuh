@@ -148,51 +148,58 @@ __device__ __forceinline__ int group_base(int j, int logt, int s0, int& hi) {
 
 // Calls f(b, w[first + b], w_con[first + b]) for b < NB, the NB = 2^r pairs
 // of a local stage from index first (a multiple of NB), read with 16-byte
-// loads where NB pairs fill one.
-template <typename T, int NB, typename F>
+// loads where NB pairs fill one.  Where Red reads no Shoup constant
+// (SolinasRed), w_con is not read and f gets 0 in its place.
+template <typename T, int NB, class Red, typename F>
 __device__ __forceinline__ void for_pairs(int first, const T* __restrict__ w,
                                           const T* __restrict__ w_con, F f) {
   typedef Vec16<T> V;
   if constexpr (NB >= V::n) {
 #pragma unroll
     for (int b0 = 0; b0 < NB; b0 += V::n) {
-      T wv[V::n], wc[V::n];
+      T wv[V::n], wc[V::n] = {};
       V::get(__ldg(reinterpret_cast<const typename V::type*>(w + first + b0)), wv);
-      V::get(__ldg(reinterpret_cast<const typename V::type*>(w_con + first + b0)), wc);
+      if constexpr (Red::kCon)
+        V::get(__ldg(reinterpret_cast<const typename V::type*>(w_con + first + b0)), wc);
 #pragma unroll
       for (int c = 0; c < V::n; ++c) f(b0 + c, wv[c], wc[c]);
     }
   } else {
 #pragma unroll
-    for (int b = 0; b < NB; ++b) f(b, __ldg(w + first + b), __ldg(w_con + first + b));
+    for (int b = 0; b < NB; ++b) {
+      T wc = 0;
+      if constexpr (Red::kCon) wc = __ldg(w_con + first + b);
+      f(b, __ldg(w + first + b), wc);
+    }
   }
 }
 
 // Forward local stages r .. ns - 1 on the registers of a group whose first
 // twiddle index is mb = 2^s0 + hi.
-template <typename T, int K, int r = 0>
+template <typename T, int K, class Red, int r = 0>
 __device__ __forceinline__ void fwd_stages(T (&x)[1 << K], const T* __restrict__ w,
-                                           const T* __restrict__ w_con, T q, int mb, int ns) {
+                                           const T* __restrict__ w_con, T q, Red red, int mb,
+                                           int ns) {
   if constexpr (r < K) {
     if (r < ns) {
       constexpr int half = (1 << K) >> (r + 1);
-      for_pairs<T, 1 << r>(mb << r, w, w_con, [&](int b, T wv, T wc) {
+      for_pairs<T, 1 << r, Red>(mb << r, w, w_con, [&](int b, T wv, T wc) {
 #pragma unroll
         for (int u = 0; u < half; ++u) {
           const int i0 = b * 2 * half + u;
-          fwd_bfly<T>(x[i0], x[i0 + half], wv, wc, q);
+          fwd_bfly<T>(x[i0], x[i0 + half], wv, wc, q, red);
         }
       });
-      fwd_stages<T, K, r + 1>(x, w, w_con, q, mb, ns);
+      fwd_stages<T, K, Red, r + 1>(x, w, w_con, q, red, mb, ns);
     }
   }
 }
 
 // Inverse local stages r .. 0, each where r < ns; with final, local stage 0 is
 // the fused final stage (stage 0 of the transform, n^-1 folded in).
-template <typename T, int K, int r = K - 1>
+template <typename T, int K, class Red, int r = K - 1>
 __device__ __forceinline__ void inv_stages(T (&x)[1 << K], const T* __restrict__ w,
-                                           const T* __restrict__ w_con, T q,
+                                           const T* __restrict__ w_con, T q, Red red,
                                            const FinalConsts<T>& fc, int mb, int ns,
                                            bool final) {
   if constexpr (r >= 0) {
@@ -200,18 +207,18 @@ __device__ __forceinline__ void inv_stages(T (&x)[1 << K], const T* __restrict__
     if (r < ns) {
       if (r == 0 && final) {
 #pragma unroll
-        for (int u = 0; u < half; ++u) bkw_final<T>(x[u], x[u + half], fc, q);
+        for (int u = 0; u < half; ++u) bkw_final<T>(x[u], x[u + half], fc, q, red);
       } else {
-        for_pairs<T, 1 << r>(mb << r, w, w_con, [&](int b, T wv, T wc) {
+        for_pairs<T, 1 << r, Red>(mb << r, w, w_con, [&](int b, T wv, T wc) {
 #pragma unroll
           for (int u = 0; u < half; ++u) {
             const int i0 = b * 2 * half + u;
-            bkw_bfly<T>(x[i0], x[i0 + half], wv, wc, q);
+            bkw_bfly<T>(x[i0], x[i0 + half], wv, wc, q, red);
           }
         });
       }
     }
-    inv_stages<T, K, r - 1>(x, w, w_con, q, fc, mb, ns, final);
+    inv_stages<T, K, Red, r - 1>(x, w, w_con, q, red, fc, mb, ns, final);
   }
 }
 
@@ -219,10 +226,10 @@ __device__ __forceinline__ void inv_stages(T (&x)[1 << K], const T* __restrict__
 // polynomial, forward or inverse: each group from device memory (gin) or
 // shared memory, its stages in registers, and back to device memory (gout)
 // or shared memory.
-template <typename T, int K, bool INV>
+template <typename T, int K, bool INV, class Red>
 __device__ __forceinline__ void run_round(const T* __restrict__ gin, T* __restrict__ gout,
                                           T* sm, const T* __restrict__ w,
-                                          const T* __restrict__ w_con, T q,
+                                          const T* __restrict__ w_con, T q, Red red,
                                           const FinalConsts<T>& fc, int logn, int s0, int ns,
                                           bool vec) {
   constexpr int R = 1 << K;
@@ -241,9 +248,9 @@ __device__ __forceinline__ void run_round(const T* __restrict__ gin, T* __restri
       for (int i = 0; i < R; ++i) x[i] = sm[padded<T>(base + i * t)];
     }
     if constexpr (INV) {
-      inv_stages<T, K>(x, w, w_con, q, fc, (1 << s0) + hi, ns, s0 == 0);
+      inv_stages<T, K, Red>(x, w, w_con, q, red, fc, (1 << s0) + hi, ns, s0 == 0);
     } else {
-      fwd_stages<T, K>(x, w, w_con, q, (1 << s0) + hi, ns);
+      fwd_stages<T, K, Red>(x, w, w_con, q, red, (1 << s0) + hi, ns);
     }
     if (gout) {
       store_group<T, R>(x, gout + base, t, vec);
@@ -285,12 +292,12 @@ __device__ __forceinline__ void run_round(const T* __restrict__ gin, T* __restri
 // stage): each group from device memory (gin) or the exchange buffer, its
 // stages in registers, and back to device memory (gout) or the exchange
 // buffer.
-template <typename T, int K, bool INV = false, class Tile>
+template <typename T, int K, bool INV = false, class Red, class Tile>
 __device__ __forceinline__ void tile_round(const Tile& tl, const T* __restrict__ gin,
                                            T* __restrict__ gout, T* sm,
                                            const T* __restrict__ w,
-                                           const T* __restrict__ w_con, T q, int s0, int ns,
-                                           const FinalConsts<T>& fc = FinalConsts<T>(),
+                                           const T* __restrict__ w_con, T q, Red red, int s0,
+                                           int ns, const FinalConsts<T>& fc = FinalConsts<T>(),
                                            bool final = false) {
   constexpr int R = 1 << K;
   const int logt = tl.logn - s0 - K;
@@ -317,9 +324,10 @@ __device__ __forceinline__ void tile_round(const Tile& tl, const T* __restrict__
       for (int i = 0; i < R; ++i) x[i] = sm[tl.sm(v, base + i * t)];
     }
     if constexpr (INV) {
-      inv_stages<T, K>(x, w, w_con, q, fc, (tl.base(v) << s0) + hi, ns, final && s0 == 0);
+      inv_stages<T, K, Red>(x, w, w_con, q, red, fc, (tl.base(v) << s0) + hi, ns,
+                            final && s0 == 0);
     } else {
-      fwd_stages<T, K>(x, w, w_con, q, (tl.base(v) << s0) + hi, ns);
+      fwd_stages<T, K, Red>(x, w, w_con, q, red, (tl.base(v) << s0) + hi, ns);
     }
     if (gout) {
       if (vec) {
@@ -347,15 +355,15 @@ __host__ __device__ inline int first_round_stages(int logn) {
 // (1 <= K <= logn): the first round from device memory, the last to device
 // memory (gout) or, with gout null, to the exchange buffer; one barrier
 // between two rounds.
-template <typename T, int K, class Tile>
+template <typename T, int K, class Red, class Tile>
 __device__ __forceinline__ void tile_forward(const Tile& tl, const T* __restrict__ gin,
                                              T* __restrict__ gout, T* sm,
                                              const T* __restrict__ w,
-                                             const T* __restrict__ w_con, T q) {
+                                             const T* __restrict__ w_con, T q, Red red) {
   for (int s0 = 0, ns = first_round_stages<K>(tl.logn); s0 < tl.logn; s0 += ns, ns = K) {
     const bool last = s0 + ns == tl.logn;
-    tile_round<T, K>(tl, s0 == 0 ? gin : nullptr, last ? gout : nullptr, sm, w, w_con, q, s0,
-                     ns);
+    tile_round<T, K>(tl, s0 == 0 ? gin : nullptr, last ? gout : nullptr, sm, w, w_con, q, red,
+                     s0, ns);
     if (!last) __syncthreads();
   }
 }
@@ -366,17 +374,17 @@ __device__ __forceinline__ void tile_forward(const Tile& tl, const T* __restrict
 // with gin null, from the exchange buffer, the last (s0 = 0, the remainder
 // stages, stride 2^logn / R) to device memory, with final ending in the fused
 // final stage; one barrier between two rounds.
-template <typename T, int K, class Tile>
+template <typename T, int K, class Red, class Tile>
 __device__ __forceinline__ void tile_inverse(const Tile& tl, const T* __restrict__ gin,
                                              T* __restrict__ gout, T* sm,
                                              const T* __restrict__ w,
-                                             const T* __restrict__ w_con, T q,
+                                             const T* __restrict__ w_con, T q, Red red,
                                              const FinalConsts<T>& fc, bool final) {
   const int nr = (tl.logn + K - 1) / K;
   for (int rd = 1; rd <= nr; ++rd) {
     const bool last = rd == nr;
     tile_round<T, K, true>(tl, rd == 1 ? gin : nullptr, last ? gout : nullptr, sm, w, w_con,
-                           q, last ? 0 : tl.logn - K * rd,
+                           q, red, last ? 0 : tl.logn - K * rd,
                            last ? first_round_stages<K>(tl.logn) : K, fc, final);
     if (!last) __syncthreads();
   }
@@ -411,10 +419,10 @@ __device__ __forceinline__ void copy_out(T* __restrict__ g, const T* sm, int n, 
 // remainder stages, the last back into shared memory, and stores from there;
 // the inverse runs from s0 = logn - K down to 0, the last round with the
 // remainder stages and the fused final stage, and stores from registers.
-template <typename T, int K, bool INV>
+template <typename T, int K, bool INV, class Red>
 __device__ __forceinline__ void body(const T* __restrict__ in, T* __restrict__ out, T* sm,
                                      const T* __restrict__ w, const T* __restrict__ w_con, T q,
-                                     const FinalConsts<T>& fc, int logn, bool strict) {
+                                     Red red, const FinalConsts<T>& fc, int logn, bool strict) {
   const T* gin = in + ((size_t)blockIdx.x << logn);
   T* gout = out + ((size_t)blockIdx.x << logn);
   const bool vec = ((reinterpret_cast<size_t>(in) | reinterpret_cast<size_t>(out)) & 15) == 0;
@@ -428,7 +436,7 @@ __device__ __forceinline__ void body(const T* __restrict__ in, T* __restrict__ o
       s0 = last ? 0 : logn - K * (rd + 1);
     }
     run_round<T, K, INV>(rd == 0 ? gin : nullptr, INV && last ? gout : nullptr, sm, w, w_con,
-                         q, fc, logn, s0, ns, vec);
+                         q, red, fc, logn, s0, ns, vec);
     if (!INV) s0 += ns;
     if (!last || !INV) __syncthreads();
   }
@@ -436,14 +444,15 @@ __device__ __forceinline__ void body(const T* __restrict__ in, T* __restrict__ o
 }
 
 // K1 (INV false) and K2 (INV true): one block per polynomial, rounds of up
-// to K stages (fewer where N < 2^K).
-template <typename T, int K, int THREADS, int MINB, bool INV>
+// to K stages (fewer where N < 2^K), the single product reduced by Red.
+template <typename T, int K, int THREADS, int MINB, bool INV, class Red>
 __global__ void __launch_bounds__(THREADS, MINB)
 rounds_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
-              const T* __restrict__ w_con, T q, FinalConsts<T> fc, int logn, int strict) {
+              const T* __restrict__ w_con, T q, FinalConsts<T> fc, int logn, int strict,
+              Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-#define NTT_BODY(KK) body<T, KK, INV>(in, out, sm, w, w_con, q, fc, logn, strict)
+#define NTT_BODY(KK) body<T, KK, INV, Red>(in, out, sm, w, w_con, q, red, fc, logn, strict)
   switch (logn < K ? logn : K) {
     case 1: NTT_BODY(1); break;
     case 2: NTT_BODY((kMin<K, 2>)); break;
@@ -472,18 +481,19 @@ struct Fused<u64> {
 // 2^logn: batch blocks of one thread a group (N / 2^kLogR of them), at most
 // kThreads, each then taking several groups a round; the cudaError_t of the
 // launch.
-template <typename T, bool INV>
+template <typename T, bool INV, class Red>
 int launch_rounds(const void* in, void* out, const void* w, const void* w_con, u64 q,
-                  const FinalConsts<T>& fc, int batch, int logn, int strict, void* stream) {
+                  const FinalConsts<T>& fc, int batch, int logn, int strict, void* stream,
+                  Red red) {
   typedef Fused<T> F;
   constexpr int K = F::kLogR;
   if (batch < 1 || logn < 1 || logn > 24) return (int)cudaErrorInvalidValue;
   const int groups = 1 << (logn - (logn < K ? logn : K));
   const int threads = groups < F::kThreads ? groups : F::kThreads;
   const size_t smem = (logn > K || !INV) ? exchange_bytes<T>(logn) : 0;
-  return launch_blocks(rounds_kernel<T, K, F::kThreads, F::kMinBlocks, INV>, batch, threads,
-                       smem, stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q,
-                       fc, logn, strict);
+  return launch_blocks(rounds_kernel<T, K, F::kThreads, F::kMinBlocks, INV, Red>, batch,
+                       threads, smem, stream, (const T*)in, (T*)out, (const T*)w,
+                       (const T*)w_con, (T)q, fc, logn, strict, red);
 }
 
 }  // namespace ntt

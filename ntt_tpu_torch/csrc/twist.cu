@@ -25,7 +25,9 @@
 // shifts and masks and reads them through the read-only cache, where the
 // neighbouring threads of a warp read the same or neighbouring entries.
 // Fusing the twist into the level-2 transform's first load would save a
-// pass over device memory; that is later work.
+// pass over device memory; that is later work.  Under the NTT_MULMOD=solinas
+// switch both chained products take the Solinas form (the SolinasRed
+// instantiation of modarith.cuh), which reads neither Ac nor Bc.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -48,11 +50,11 @@ struct TwistShape {
   int m, l2, lo_log;
 };
 
-template <typename T, int V>
+template <typename T, int V, class Red>
 __global__ void __launch_bounds__(kTwistThreads)
 twist_mul_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ a_tab,
                  const T* __restrict__ a_con, const T* __restrict__ b_tab,
-                 const T* __restrict__ b_con, T q, TwistShape s) {
+                 const T* __restrict__ b_con, T q, TwistShape s, Red red) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long n_mask = (1ll << s.m) - 1;
   const int n2_mask = (1 << s.l2) - 1, lo_mask = (1 << s.lo_log) - 1;
@@ -66,29 +68,30 @@ twist_mul_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restr
       const int c = p >> s.l2, n2 = p & n2_mask;
       const int ai = (c << hi_log) | (n2 >> s.lo_log);
       const int bi = (c << s.lo_log) | (n2 & lo_mask);
-      const T x = shoup_mul_q2<T>(__ldg(a_tab + ai), __ldg(a_con + ai), v.w[k], q);
-      v.w[k] = shoup_mul_q2<T>(__ldg(b_tab + bi), __ldg(b_con + bi), x, q);
+      const T ac = Red::kCon ? __ldg(a_con + ai) : 0, bc = Red::kCon ? __ldg(b_con + bi) : 0;
+      const T x = red.mul(__ldg(a_tab + ai), ac, v.w[k], q);
+      v.w[k] = red.mul(__ldg(b_tab + bi), bc, x, q);
     }
     reinterpret_cast<Words<T, V>*>(out)[i] = v;
   }
 }
 
-template <typename T, int V>
+template <typename T, int V, class Red>
 int launch_twist(const void* in, void* out, const void* a, const void* ac, const void* b,
-                 const void* bc, T q, TwistShape s, void* stream) {
+                 const void* bc, T q, TwistShape s, void* stream, Red red) {
   long long blocks = (s.count + kTwistThreads - 1) / kTwistThreads;
   if (blocks > 65535LL * 32) blocks = 65535LL * 32;
-  twist_mul_kernel<T, V><<<(unsigned)blocks, kTwistThreads, 0, (cudaStream_t)stream>>>(
-      (const T*)in, (T*)out, (const T*)a, (const T*)ac, (const T*)b, (const T*)bc, q, s);
+  twist_mul_kernel<T, V, Red><<<(unsigned)blocks, kTwistThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)in, (T*)out, (const T*)a, (const T*)ac, (const T*)b, (const T*)bc, q, s, red);
   return (int)cudaGetLastError();
 }
 
 // 16-byte vectors where the words divide into them and both pointers are
 // aligned (every tensor the wrapper allocates is); single words otherwise.
-template <typename T>
+template <typename T, class Red = ShoupRed>
 int launch_twist_mul(const void* in, void* out, const void* a, const void* ac, const void* b,
                      const void* bc, unsigned long long q, int batch, int m, int l1_log,
-                     void* stream) {
+                     void* stream, Red red = Red()) {
   if (batch < 1 || m < 1 || m > 30 || l1_log < 0 || l1_log > m)
     return (int)cudaErrorInvalidValue;
   constexpr int V = 16 / sizeof(T);
@@ -99,10 +102,10 @@ int launch_twist_mul(const void* in, void* out, const void* a, const void* ac, c
   const long long words = (long long)batch << m;
   if (words % V == 0 && ((uintptr_t)in | (uintptr_t)out) % 16 == 0) {
     s.count = words / V;
-    return launch_twist<T, V>(in, out, a, ac, b, bc, (T)q, s, stream);
+    return launch_twist<T, V>(in, out, a, ac, b, bc, (T)q, s, stream, red);
   }
   s.count = words;
-  return launch_twist<T, 1>(in, out, a, ac, b, bc, (T)q, s, stream);
+  return launch_twist<T, 1>(in, out, a, ac, b, bc, (T)q, s, stream, red);
 }
 
 }  // namespace ntt
@@ -121,6 +124,22 @@ int ntt_twist_mul_u64(const void* in, void* out, const void* a, const void* ac, 
                       const void* bc, unsigned long long q, int batch, int m, int l1_log,
                       void* stream) {
   return ntt::launch_twist_mul<ntt::u64>(in, out, a, ac, b, bc, q, batch, m, l1_log, stream);
+}
+
+// The SolinasRed instantiations: (e, k) before the stream; ac and bc are not
+// read (they may be null).
+int ntt_twist_mul_solinas_u32(const void* in, void* out, const void* a, const void* ac,
+                              const void* b, const void* bc, unsigned long long q, int batch,
+                              int m, int l1_log, int e, int k, void* stream) {
+  return ntt::launch_twist_mul<ntt::u32>(in, out, a, ac, b, bc, q, batch, m, l1_log, stream,
+                                         ntt::SolinasRed{e, k});
+}
+
+int ntt_twist_mul_solinas_u64(const void* in, void* out, const void* a, const void* ac,
+                              const void* b, const void* bc, unsigned long long q, int batch,
+                              int m, int l1_log, int e, int k, void* stream) {
+  return ntt::launch_twist_mul<ntt::u64>(in, out, a, ac, b, bc, q, batch, m, l1_log, stream,
+                                         ntt::SolinasRed{e, k});
 }
 
 }  // extern "C"

@@ -27,12 +27,19 @@ A wrapper runs the plain PyTorch version (``kernels/sixstep.py``) for a
 tensor on the CPU and the kernel for a tensor on a CUDA device; it never
 falls back from one to the other.  ``LAUNCHES`` counts the kernel launches
 per kernel and width.
+
+Under the NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``), at a q of
+the Solinas form of the plan's word (``modmath.solinas_args``), a wrapper
+launches the kernel's Solinas instantiation (``csrc/modarith.cuh``'s
+SolinasRed), which reads no w_con table, and counts it in
+``SOLINAS_LAUNCHES``; the plain versions follow the same switch.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch import native
 from ntt_tpu_torch.kernels import sixstep
 from ntt_tpu_torch.kernels.elems import pick_ops
@@ -44,6 +51,7 @@ SMEM_BYTES = 232448
 
 LAUNCHES = {"fwd_fused_u32": 0, "fwd_fused_u64": 0, "inv_fused_u32": 0,
             "inv_fused_u64": 0}
+SOLINAS_LAUNCHES = {f"{k}_solinas_u{w}": 0 for k in ("fwd_fused", "inv_fused") for w in (32, 64)}
 
 
 def max_logn(word: int) -> int:
@@ -84,12 +92,13 @@ def fwd_fused(a: torch.Tensor, plan: NttPlan, strict: bool = True) -> torch.Tens
     out = torch.empty_like(a)
     if batch == 0:
         return out
-    name = f"fwd_fused_u{plan.word}"
+    sol = mm.solinas_args(plan.q, plan.word)
+    name = native.entry("fwd_fused", plan.word, sol)
     with torch.cuda.device(a.device):
         native.launch(name, a.data_ptr(), out.data_ptr(), tabs.w.data_ptr(),
-                      tabs.w_con.data_ptr(), plan.q, batch, plan.m, int(strict),
-                      native.stream(a.device))
-    LAUNCHES[name] += 1
+                      None if sol else tabs.w_con.data_ptr(), plan.q, batch, plan.m,
+                      int(strict), *(sol or ()), native.stream(a.device))
+    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
     return out
 
 
@@ -105,12 +114,13 @@ def inv_fused(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     out = torch.empty_like(a)
     if batch == 0:
         return out
-    name = f"inv_fused_u{plan.word}"
+    sol = mm.solinas_args(plan.q, plan.word)
+    name = native.entry("inv_fused", plan.word, sol)
     mask = (1 << plan.word) - 1
     with torch.cuda.device(a.device):
         native.launch(name, a.data_ptr(), out.data_ptr(), tabs.w_inv.data_ptr(),
-                      tabs.w_inv_con.data_ptr(), plan.q, n_inv, n_inv_con, f_tmp,
-                      f_con & mask, f_con >> plan.word, batch, plan.m,
+                      None if sol else tabs.w_inv_con.data_ptr(), plan.q, n_inv, n_inv_con,
+                      f_tmp, f_con & mask, f_con >> plan.word, batch, plan.m, *(sol or ()),
                       native.stream(a.device))
-    LAUNCHES[name] += 1
+    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
     return out

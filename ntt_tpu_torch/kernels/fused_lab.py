@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch import native
 from ntt_tpu_torch.kernels import sixstep
 from ntt_tpu_torch.kernels.elems import pick_ops
@@ -49,6 +50,18 @@ from ntt_tpu_torch.plan import NttPlan
 
 LAUNCHES = {f"{k}_u{w}": 0 for k in ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
             for w in (32, 64)}
+
+
+def refuse_switch(plan: NttPlan) -> None:
+    """Raise where the NTT_MULMOD=solinas switch changes the plan's single
+    product (``modmath.solinas_args``): the lab's kernels L1-L3 have no
+    Solinas instantiation, and the lab computes nothing rather than the
+    Shoup bits beside a plain side that computes the Solinas ones."""
+    if mm.solinas_args(plan.q, plan.word) is not None:
+        raise RuntimeError(
+            f"the lab's kernels have no Solinas instantiation: q={plan.q:#x} takes the "
+            "Solinas product under NTT_MULMOD=solinas (modmath.USE_SOLINAS); turn the "
+            "switch off for the lab")
 
 
 def plain(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
@@ -88,6 +101,7 @@ def fwd_fused_v2(a: torch.Tensor, plan: NttPlan, n1_log: int, group: int = 2,
     """L1: forward NTT of (..., N) in rounds of ``group`` stages; output as
     ``fused.fwd_fused``'s or, with keep_transposed, in the (N2, N1) layout."""
     sixstep._split(plan.n, n1_log)
+    refuse_switch(plan)
     if group not in (1, 2):
         raise ValueError(f"group must be 1 or 2, got {group}")
     if native.route(a) == "cpu":
@@ -101,6 +115,7 @@ def fwd_fused_v3(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = Tru
     """L2: forward NTT of (..., N) by Stockham stages; outputs as
     fwd_fused_v2's."""
     sixstep._split(plan.n, n1_log)
+    refuse_switch(plan)
     if native.route(a) == "cpu":
         return plain(a, plan, n1_log, strict, keep_transposed)
     return _launch("fwd_fused_v3", "fwd_fused_v3", a, plan, n1_log, int(strict),

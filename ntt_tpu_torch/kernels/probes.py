@@ -32,6 +32,7 @@ import torch
 
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch import native
+from ntt_tpu_torch.kernels import fused_lab
 from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.kernels.fused import max_logn
 from ntt_tpu_torch.plan import NttPlan
@@ -122,6 +123,7 @@ def diag_math(a: torch.Tensor, plan: NttPlan, n_rounds: int) -> torch.Tensor:
     _logn(a)
     if a.dtype != plan.dtype:
         raise TypeError(f"expected {plan.dtype} for q={plan.q:#x}, got {a.dtype}")
+    fused_lab.refuse_switch(plan)
     if native.route(a) == "cpu":
         return plain_math(a, plan, n_rounds)
     tabs = plan.device_tables(a.device)

@@ -37,7 +37,10 @@ stages, as K1 does, is later work.
 The wrapper runs the plain version for a tensor on the CPU and the kernel
 for a tensor on a CUDA device; it never falls back from one to the other.
 ``LAUNCHES`` counts the launches per entry point, ``MODES`` per entry
-point, stage mode and twiddle view.
+point, stage mode and twiddle view.  Under the NTT_MULMOD=solinas switch
+(``modmath.USE_SOLINAS``), at a q of the Solinas form of the stage's word,
+the wrapper launches K9's Solinas instantiation, which reads no Shoup
+constant, and counts it in ``SOLINAS_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ PERM_NONE, PERM_T1, PERM_T2 = 0, 1, 2  # group order inside blocks of 8 / 4
 MODE_NAMES = ("fwd", "bkw", "final", "seal_final")
 
 LAUNCHES = {"r2_stage_u32": 0, "r2_stage_u64": 0}
+SOLINAS_LAUNCHES = {"r2_stage_solinas_u32": 0, "r2_stage_solinas_u64": 0}
 MODES: collections.Counter = collections.Counter()
 
 # The inverses of the r2_16 / r4r2 tail segments' lane orders
@@ -210,13 +214,14 @@ def r2_stage(a: torch.Tensor, tab: torch.Tensor, con: torch.Tensor, st: R2Stage,
         return out
     n_inv, n_inv_con, f_tmp, f_con = consts
     mask = (1 << word) - 1
-    name = f"r2_stage_u{word}"
+    sol = mm.solinas_args(q, word)
+    name = native.entry("r2_stage", word, sol)
     with torch.cuda.device(a.device):
-        native.launch(name, a.data_ptr(), out.data_ptr(), tab.data_ptr(), con.data_ptr(), q,
-                      rows, logn, st.lt, st.mode, st.pre, st.post, st.base, st.gs, st.js,
-                      st.perm, n_inv, n_inv_con, f_tmp, f_con & mask, f_con >> word,
-                      native.stream(a.device))
-    LAUNCHES[name] += 1
+        native.launch(name, a.data_ptr(), out.data_ptr(), tab.data_ptr(),
+                      None if sol else con.data_ptr(), q, rows, logn, st.lt, st.mode, st.pre,
+                      st.post, st.base, st.gs, st.js, st.perm, n_inv, n_inv_con, f_tmp,
+                      f_con & mask, f_con >> word, *(sol or ()), native.stream(a.device))
+    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
     MODES[name, MODE_NAMES[st.mode], st.view] += 1
     return out
 

@@ -38,7 +38,11 @@ later work.
 The wrapper runs the plain version for a tensor on the CPU and the kernel
 for a tensor on a CUDA device; it never falls back from one to the other.
 ``LAUNCHES`` counts the launches per entry point, ``MODES`` per entry
-point, stage mode and twiddle layout.
+point, stage mode and twiddle layout.  Under the NTT_MULMOD=solinas switch,
+at a q of the Solinas form of the stage's word (32 or 64), the wrapper
+launches K10's Solinas instantiation (the single products switched, the
+dual ones Shoup) and counts it in ``SOLINAS_LAUNCHES``; word 56 never
+switches.
 """
 
 from __future__ import annotations
@@ -49,6 +53,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch import native
 from ntt_tpu_torch import twiddles as tw
 from ntt_tpu_torch.kernels.elems import ops_at
@@ -64,6 +69,7 @@ MODE_NAMES = ("r4_fwd", "r4_inv", "r2_fwd", "r2_bkw")
 TW_NAMES = ("expand", "region")  # a radix-2 sweep's: "pairs"
 
 LAUNCHES = {"r4_stage_u32": 0, "r4_stage_u64": 0, "r4_stage_w56": 0}
+SOLINAS_LAUNCHES = {"r4_stage_solinas_u32": 0, "r4_stage_solinas_u64": 0}
 MODES: collections.Counter = collections.Counter()
 
 LANE_UNPERM = np.argsort(tw.LANE_PERM)
@@ -195,12 +201,13 @@ def r4_stage(a: torch.Tensor, tab: torch.Tensor, con: torch.Tensor, st: R4Stage,
     out = torch.empty_like(a)
     if rows == 0:
         return out
-    name = {32: "r4_stage_u32", 56: "r4_stage_w56", 64: "r4_stage_u64"}[word]
+    sol = mm.solinas_args(q, word)  # never at word 56
+    name = "r4_stage_w56" if word == 56 else native.entry("r4_stage", word, sol)
     with torch.cuda.device(a.device):
         native.launch(name, a.data_ptr(), out.data_ptr(), tab.data_ptr(), con.data_ptr(), q,
                       rows, logn, st.lt, st.mode, st.pre, st.post, st.tw, st.base, st.step,
-                      st.perm, consts[0], consts[1], native.stream(a.device))
-    LAUNCHES[name] += 1
+                      st.perm, consts[0], consts[1], *(sol or ()), native.stream(a.device))
+    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
     MODES[name, MODE_NAMES[st.mode], TW_NAMES[st.tw] if radix == 4 else "pairs"] += 1
     return out
 

@@ -25,13 +25,16 @@ device memory.
 The wrapper runs the plain PyTorch version (``sixstep.twist_mul``) for a
 tensor on the CPU and the kernel for a tensor on a CUDA device; it never
 falls back from one to the other.  ``LAUNCHES`` counts the kernel launches
-per width.
+per width; ``SOLINAS_LAUNCHES`` those of K8's Solinas instantiation, which
+the wrapper launches under the NTT_MULMOD=solinas switch at a q of the
+Solinas form (both chained products switched; Ac and Bc unread).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch import native
 from ntt_tpu_torch.kernels import sixstep, twopass
 from ntt_tpu_torch.kernels.elems import pick_ops
@@ -39,6 +42,7 @@ from ntt_tpu_torch.kernels.fused import cuda_batch
 from ntt_tpu_torch.plan import NttPlan
 
 LAUNCHES = {"twist_mul_u32": 0, "twist_mul_u64": 0}
+SOLINAS_LAUNCHES = {"twist_mul_solinas_u32": 0, "twist_mul_solinas_u64": 0}
 
 
 def twist_mul(a: torch.Tensor, plan: NttPlan, l1_log: int,
@@ -55,11 +59,15 @@ def twist_mul(a: torch.Tensor, plan: NttPlan, l1_log: int,
     out = torch.empty_like(a)
     if batch == 0:
         return out
-    name = f"twist_mul_u{plan.word}"
+    sol = mm.solinas_args(plan.q, plan.word)
+    name = native.entry("twist_mul", plan.word, sol)
+    a_tab, a_con, b_tab, b_con = tw
+    ptrs = (a_tab.data_ptr(), None if sol else a_con.data_ptr(), b_tab.data_ptr(),
+            None if sol else b_con.data_ptr())
     with torch.cuda.device(a.device):
-        native.launch(name, a.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in tw), plan.q,
-                      batch, plan.m, l1_log, native.stream(a.device))
-    LAUNCHES[name] += 1
+        native.launch(name, a.data_ptr(), out.data_ptr(), *ptrs, plan.q, batch, plan.m, l1_log,
+                      *(sol or ()), native.stream(a.device))
+    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
     return out
 
 

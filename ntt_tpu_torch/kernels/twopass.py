@@ -26,13 +26,16 @@ reads, K7 K4's column tile.
 A wrapper runs the plain PyTorch version (``kernels/sixstep.py``) for a
 tensor on the CPU and the kernel for a tensor on a CUDA device; it never
 falls back from one to the other.  ``LAUNCHES`` counts the kernel launches
-per kernel and width.
+per kernel and width; ``SOLINAS_LAUNCHES`` those of the Solinas
+instantiations, which a wrapper launches under the NTT_MULMOD=solinas switch
+at a q of the Solinas form (``kernels/fused.py``); they read no w_con.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch import native
 from ntt_tpu_torch.kernels import sixstep
 from ntt_tpu_torch.kernels.elems import pick_ops
@@ -41,8 +44,9 @@ from ntt_tpu_torch.plan import NttPlan
 
 SECTOR_BYTES = 32  # one DRAM sector: the least a coalesced access should move
 
-LAUNCHES = {f"{k}_u{w}": 0 for k in ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols")
-            for w in (32, 64)}
+KERNELS = ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols")
+LAUNCHES = {f"{k}_u{w}": 0 for k in KERNELS for w in (32, 64)}
+SOLINAS_LAUNCHES = {f"{k}_solinas_u{w}": 0 for k in KERNELS for w in (32, 64)}
 
 
 # K4-K7's tile: the shared memory it aims at; a column tile of short rows
@@ -102,19 +106,23 @@ def _logs(plan: NttPlan, n1_log: int) -> tuple[int, int]:
     return n1_log, plan.m - n1_log
 
 
-def _launch(kernel: str, a: torch.Tensor, plan: NttPlan, before: tuple,
-            after: tuple) -> torch.Tensor:
-    """Launch ``kernel`` at the plan's width into a new output; its launcher
-    takes (in, out, *before, batch, *after, stream)."""
+def _launch(kernel: str, a: torch.Tensor, plan: NttPlan, w: torch.Tensor,
+            w_con: torch.Tensor, before: tuple, after: tuple) -> torch.Tensor:
+    """Launch ``kernel`` at the plan's width into a new output, its Solinas
+    instantiation where the switch takes q; its launcher takes (in, out, w,
+    w_con, *before, batch, *after[, e, k], stream), w_con null for the
+    Solinas one."""
     batch = cuda_batch(a, plan)
     out = torch.empty_like(a)
     if batch == 0:
         return out
-    name = f"{kernel}_u{plan.word}"
+    sol = mm.solinas_args(plan.q, plan.word)
+    name = native.entry(kernel, plan.word, sol)
     with torch.cuda.device(a.device):
-        native.launch(name, a.data_ptr(), out.data_ptr(), *before, batch, *after,
-                      native.stream(a.device))
-    LAUNCHES[name] += 1
+        native.launch(name, a.data_ptr(), out.data_ptr(), w.data_ptr(),
+                      None if sol else w_con.data_ptr(), *before, batch, *after,
+                      *(sol or ()), native.stream(a.device))
+    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
     return out
 
 
@@ -141,8 +149,7 @@ def fwd_cols(a: torch.Tensor, plan: NttPlan, n1_log: int,
     if native.route(a) == "cpu":
         return sixstep.fwd_cols(a, pick_ops(plan.q), tabs.w, tabs.w_con, plan.q, n1_log)
     tc = round_tile_log(n1_log, n2_log, plan.word, rows=False)
-    return _launch("fwd_cols", a, plan, (tabs.w.data_ptr(), tabs.w_con.data_ptr(), plan.q),
-                   (n1_log, n2_log, tc))
+    return _launch("fwd_cols", a, plan, tabs.w, tabs.w_con, (plan.q,), (n1_log, n2_log, tc))
 
 
 def fwd_rows(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
@@ -155,7 +162,7 @@ def fwd_rows(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
         return sixstep.fwd_rows(a, pick_ops(plan.q), tabs.w, tabs.w_con, plan.q, n1_log,
                                 strict, keep_transposed)
     tr = round_tile_log(n1_log, n2_log, plan.word, rows=True, transposed=keep_transposed)
-    return _launch("fwd_rows", a, plan, (tabs.w.data_ptr(), tabs.w_con.data_ptr(), plan.q),
+    return _launch("fwd_rows", a, plan, tabs.w, tabs.w_con, (plan.q,),
                    (n1_log, n2_log, tr, int(strict), int(keep_transposed)))
 
 
@@ -169,8 +176,7 @@ def inv_rows(a: torch.Tensor, plan: NttPlan, n1_log: int,
         return sixstep.inv_rows(a, pick_ops(plan.q), tabs.w_inv, tabs.w_inv_con,
                                 plan.q, n1_log, input_transposed)
     tr = round_tile_log(n1_log, n2_log, plan.word, rows=True, transposed=input_transposed)
-    return _launch("inv_rows", a, plan,
-                   (tabs.w_inv.data_ptr(), tabs.w_inv_con.data_ptr(), plan.q),
+    return _launch("inv_rows", a, plan, tabs.w_inv, tabs.w_inv_con, (plan.q,),
                    (n1_log, n2_log, tr, int(input_transposed)))
 
 
@@ -189,7 +195,6 @@ def inv_cols(a: torch.Tensor, plan: NttPlan, n1_log: int,
                                 n_inv_con, f_tmp, f_con, plan.q, n1_log)
     tc = round_tile_log(n1_log, n2_log, plan.word, rows=False)
     mask = (1 << plan.word) - 1
-    return _launch("inv_cols", a, plan,
-                   (tabs.w_inv.data_ptr(), tabs.w_inv_con.data_ptr(), plan.q, n_inv,
-                    n_inv_con, f_tmp, f_con & mask, f_con >> plan.word),
+    return _launch("inv_cols", a, plan, tabs.w_inv, tabs.w_inv_con,
+                   (plan.q, n_inv, n_inv_con, f_tmp, f_con & mask, f_con >> plan.word),
                    (n1_log, n2_log, tc))

@@ -29,7 +29,9 @@ times (``cuda_us``: a CUDA graph of ``INNER`` calls between two CUDA
 events, after two warm-up calls, the minimum over ``--reps``), printed per
 transform beside the card's name and power limit.
 With ``--device cpu`` every candidate is its plain version and nothing is
-timed.
+timed.  Under the NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``) a
+case whose q takes the Solinas product raises: the lab's kernels have no
+Solinas instantiation.
 """
 
 from __future__ import annotations
@@ -141,6 +143,7 @@ def cuda_us(fn, x, reps: int, inner: int) -> float:
 def run_case(case: str, args, device: torch.device, where: str) -> list[dict]:
     p = case_params(case, args.m)
     plan = get_plan(p)
+    fused_lab.refuse_switch(plan)
     n1_log = lab_split(p.m)
     rng = np.random.default_rng(0)
     x = mm.from_host(rng.integers(0, p.q, size=(args.batch, p.n), dtype=np.uint64), p.q,

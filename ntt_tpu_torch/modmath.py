@@ -23,6 +23,8 @@ the same arithmetic.  Constants are Python ints in [0, 2^word).
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -162,9 +164,89 @@ def reduce_8q_to_q(v, q: int):
     return reduce_2q_to_q(reduce_8q_to_2q(v, q), q)
 
 
+# ---------------------------------------------------------------------------
+# The Solinas products: the NTT_MULMOD=solinas switch
+# ---------------------------------------------------------------------------
+
+# ``ntt_tpu.modmath.USE_SOLINAS``: set from the environment at import
+# (NTT_MULMOD=solinas), or by assigning this global.  Every call reads it
+# (the port has no trace cache): the next call after an assignment computes
+# the other way, on the CPU and on the card alike.
+USE_SOLINAS = os.environ.get("NTT_MULMOD", "") == "solinas"
+
+
+def solinas_form(q: int):
+    """(e, k) if q == 2^e - 2^k + 1 with 0 < k, 2k + 3 <= e and 32 < e < 63
+    (``ntt_tpu.modmath.solinas_form``): the moduli whose two-fold product
+    lands in [0, 2q) for every lazy input (t < 8q at e <= 61, t < 4q at
+    e = 62); else None."""
+    e = q.bit_length()
+    c = (1 << e) - q
+    k = (c + 1).bit_length() - 1
+    if c != (1 << k) - 1 or k == 0 or 2 * k + 3 > e or not 32 < e < 63:
+        return None
+    return e, k
+
+
+def solinas_form32(q: int):
+    """(e, k) if q == 2^e - 2^k + 1 with 0 < k and 2k + 3 <= e <= 29, the
+    word-32 form (``ntt_tpu.modmath.solinas_form32``); else None."""
+    e = q.bit_length()
+    c = (1 << e) - q
+    k = (c + 1).bit_length() - 1
+    if c != (1 << k) - 1 or k == 0 or 2 * k + 3 > e or e > 29:
+        return None
+    return e, k
+
+
+def solinas_args(q: int, word: int):
+    """(e, k) where a single product at Shoup word ``word`` takes the
+    Solinas form now: the switch is on and q has the form of that word
+    (words 32 and 64; never word 56); else None."""
+    if not USE_SOLINAS or word not in (32, 64):
+        return None
+    return solinas_form(q) if word == 64 else solinas_form32(q)
+
+
+def mul_mod_q2_solinas(w, t, q: int, e: int, k: int):
+    """(w*t) mod-q representative in [0, 2q) for q = 2^e - 2^k + 1, w < q,
+    t < 8q (``ntt_tpu.modmath.mul_mod_q2_solinas``, bit for bit): the
+    128-bit product p, then two folds of 2^e = 2^k - 1 (mod q).  A = p >> e
+    (its low 64 bits); r = A (2^k - 1) + (p mod 2^e), up to e + k + 3 bits
+    as a (lo, hi) pair; A2 = the low 32 bits of r >> e; the result is
+    (r mod 2^e) + A2 (2^k - 1) mod 2^64.  No quotient, no final subtract."""
+    lo, hi = mul128(w, t)
+    a = shr64(lo, e) | (hi << (64 - e))
+    b = lo & ((1 << e) - 1)
+    tl, th = a << k, shr64(a, 64 - k)  # A << k over 128 bits
+    dl = tl - a
+    dh = th - ult64t(tl, a).to(dl.dtype)
+    rl = dl + b
+    rh = dh + ult64t(rl, dl).to(dl.dtype)
+    a2 = (shr64(rl, e) | (rh << (64 - e))) & MASK32
+    return (rl & ((1 << e) - 1)) + ((a2 << k) - a2)
+
+
+def mul_mod32_q2_solinas(w, t, q: int, e: int, k: int):
+    """The word-32 form (``ntt_tpu.modmath.mul_mod32_q2_solinas``, e <=
+    29): the 64-bit product, A = the low 32 bits of p >> e, r = A (2^k - 1)
+    + (p mod 2^e), A2 = the low 32 bits of r >> e, and (r mod 2^e) +
+    A2 (2^k - 1) mod 2^32; in [0, 2q) for w < q, t < 8q."""
+    p = _u32_as_i64(w) * _u32_as_i64(t)
+    a = shr64(p, e) & MASK32
+    r = (a << k) - a + (p & ((1 << e) - 1))
+    a2 = shr64(r, e) & MASK32
+    return (((r & ((1 << e) - 1)) + ((a2 << k) - a2)) & MASK32).to(torch.int32)
+
+
 def shoup_mul_q2(w, w_con, t, q: int):
     """(w*t - hi64(w_con*t)*q) mod 2^64, in [0, 2q) (the default path of
-    ``ntt_tpu.modmath.shoup_mul_q2``)."""
+    ``ntt_tpu.modmath.shoup_mul_q2``).  Under the switch (``USE_SOLINAS``)
+    at a q that ``solinas_form`` accepts, ``mul_mod_q2_solinas`` in its
+    place, w_con unread, as in the JAX package."""
+    form = solinas_args(q, 64)
+    if form is not None:
+        return mul_mod_q2_solinas(w, t, q, *form)
     w = s64(w) if isinstance(w, int) else w
     return w * t - mulhi64(w_con, t) * s64(q)
 
@@ -260,7 +342,11 @@ def barrett_reduce32(v, q: int):
 
 
 def shoup_mul32_q2(w, w_con, t, q: int):
-    """Word-32 Shoup multiply; result < 2q for t < 2^32."""
+    """Word-32 Shoup multiply; result < 2q for t < 2^32.  Under the switch
+    at a q that ``solinas_form32`` accepts, ``mul_mod32_q2_solinas``."""
+    form = solinas_args(q, 32)
+    if form is not None:
+        return mul_mod32_q2_solinas(w, t, q, *form)
     w = s32(w) if isinstance(w, int) else w
     return w * t - mulhi32(w_con, t) * s32(q)
 

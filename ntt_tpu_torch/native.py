@@ -70,6 +70,14 @@ SIGNATURES = {
     "ntt_r4_stage_w56": _R4_STAGE,
     **{f"ntt_limb_matmul_{c}{s}": _LIMB_MATMUL for c in ("left", "right")
        for s in ("", "_scaled")},
+    # the Solinas instantiations (the NTT_MULMOD=solinas switch): the Shoup
+    # entry point's arguments with (e, k) before the stream
+    **{f"ntt_{k}_solinas_u{w}": sig[:-1] + [_I, _I, _P] for w in (32, 64)
+       for k, sig in (("fwd_fused", _FUSED_FWD), ("inv_fused", _FUSED_INV),
+                      ("fwd_cols", _FWD_COLS), ("fwd_rows", _FWD_ROWS),
+                      ("inv_rows", _INV_ROWS), ("inv_cols", _INV_COLS),
+                      ("twist_mul", _TWIST), ("r2_stage", _R2_STAGE),
+                      ("r4_stage", _R4_STAGE))},
 }
 
 
@@ -169,6 +177,13 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = cdll.ntt_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err} ({msg})")
+
+
+def entry(kernel: str, word: int, solinas) -> str:
+    """The launcher name (less ``ntt_``) of ``kernel`` at ``word``: its
+    Solinas instantiation where ``solinas`` ((e, k) from
+    ``modmath.solinas_args``) is set, else its Shoup one."""
+    return f"{kernel}_solinas_u{word}" if solinas else f"{kernel}_u{word}"
 
 
 def route(t) -> str:

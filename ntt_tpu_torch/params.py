@@ -67,6 +67,20 @@ def find_ntt_primes(bits: int, m: int, count: int) -> list[int]:
     return out
 
 
+def find_solinas_ntt_prime(bits: int, m: int) -> int:
+    """The prime q = 2^bits - 2^k + 1 of least k >= m + 1 (so 2^(m+1) |
+    q - 1), the largest of that form (``ntt_tpu.params.find_solinas_ntt_prime``).
+    Whether the switch's product takes it is ``modmath.solinas_form``'s
+    call, which also needs 2k + 3 <= bits: 2^62 - 2^46 + 1, this function's
+    answer at (62, 16), keeps the Shoup product.  Raises if no such prime
+    exists."""
+    for k in range(m + 1, bits - 1):
+        q = (1 << bits) - (1 << k) + 1
+        if is_probable_prime(q):
+            return q
+    raise ValueError(f"no Solinas NTT prime 2^{bits} - 2^k + 1 with k >= {m + 1}")
+
+
 def primitive_2n_root(q: int, m: int) -> int:
     """The least primitive 2N-th root of unity mod q, N = 2^m: c =
     g^((q-1)/2N) for the first g of order divisible by 2N, then the least
@@ -164,9 +178,13 @@ FIXTURES: tuple[NttParams, ...] = (
 
 
 @functools.lru_cache(maxsize=None)
-def bench_params(m: int = 14, q_bits: int = 62) -> NttParams:
+def bench_params(m: int = 14, q_bits: int = 62, solinas: bool = False) -> NttParams:
     """The benchmark instance: N = 2^m with the largest q_bits-bit NTT
-    prime (at m = 14: q = 2^62 - 2^16 + 1)."""
-    p = NttParams.generate(q_bits, m)
+    prime (at m = 14: q = 2^62 - 2^16 + 1), or with solinas the prime of
+    ``find_solinas_ntt_prime`` (the same q at the m14 headline)."""
+    if solinas:
+        p = NttParams.make(find_solinas_ntt_prime(q_bits, m), m)
+    else:
+        p = NttParams.generate(q_bits, m)
     p.validate()
     return p

@@ -8,8 +8,13 @@ package's nvcc flags (``native.ARCH_FLAGS``), disassembles it with
 arithmetic instructions of a kernel that loads a pair, runs one butterfly
 (constants as kernel parameters) and stores the pair, less those of the
 same kernel that stores the pair swapped instead.  Loads, stores, constant
-and special-register reads, branches, EXIT and NOP are not counted.  Needs
-nvcc and cuobjdump (the CUDA toolkit), not a card.
+and special-register reads, branches, EXIT and NOP are not counted.  Each
+butterfly is counted with both reduction policies of the single product,
+Shoup (``fwd_bfly_u64``) and Solinas (``fwd_bfly_solinas_u64``, the
+NTT_MULMOD=solinas switch), and beside its instructions are its integer
+multiplies: the IMAD / IMUL instructions that multiply (not the IMAD.MOV,
+IMAD.SHL and IMAD.IADD forms, which move, shift and add), one 32-bit
+multiply each.  Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
@@ -30,7 +35,8 @@ _KERNELS = r"""
 #include "modarith.cuh"
 using namespace ntt;
 #define PAIR(T, NAME, BODY)                                                        \
-  extern "C" __global__ void NAME(T* p, T w, T w_con, T q, FinalConsts<T> f) {     \
+  extern "C" __global__ void NAME(T* p, T w, T w_con, T q, FinalConsts<T> f,       \
+                                  SolinasRed s) {                                  \
     T x = p[threadIdx.x], y = p[threadIdx.x + 32];                                 \
     BODY;                                                                          \
     p[threadIdx.x] = x;                                                            \
@@ -40,12 +46,16 @@ using namespace ntt;
   PAIR(T, none_u##W, { T z = x; x = y; y = z; })                                   \
   PAIR(T, fwd_bfly_u##W, fwd_bfly<T>(x, y, w, w_con, q))                           \
   PAIR(T, bkw_bfly_u##W, bkw_bfly<T>(x, y, w, w_con, q))                           \
-  PAIR(T, bkw_final_u##W, bkw_final<T>(x, y, f, q))
+  PAIR(T, bkw_final_u##W, bkw_final<T>(x, y, f, q))                               \
+  PAIR(T, fwd_bfly_solinas_u##W, fwd_bfly<T>(x, y, w, w_con, q, s))               \
+  PAIR(T, bkw_bfly_solinas_u##W, bkw_bfly<T>(x, y, w, w_con, q, s))               \
+  PAIR(T, bkw_final_solinas_u##W, bkw_final<T>(x, y, f, q, s))
 WIDTH(u32, 32)
 WIDTH(u64, 64)
 """
 
 _NOT_COUNTED = ("LD", "ST", "ULD", "S2R", "S2UR", "BRA", "EXIT", "NOP")
+_NOT_MULTIPLIES = ("IMAD.MOV", "IMAD.SHL", "IMAD.IADD")
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
 _INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
@@ -67,8 +77,15 @@ def count(sass: str) -> dict[str, collections.Counter]:
     return out
 
 
+def multiplies(opcodes: dict) -> int:
+    """The integer multiplies among counted opcodes."""
+    return sum(v for k, v in opcodes.items()
+               if k.startswith(("IMAD", "IMUL")) and not k.startswith(_NOT_MULTIPLIES))
+
+
 def butterfly_counts() -> dict[str, dict]:
-    """{'fwd_bfly_u64': {'instructions': n, 'opcodes': {...}}, ...}."""
+    """{'fwd_bfly_u64': {'instructions': n, 'multiplies': n, 'opcodes':
+    {...}}, ...}, for each butterfly, policy and width."""
     nvcc = native.find_nvcc()
     cuobjdump = str(pathlib.Path(nvcc).with_name("cuobjdump"))
     native.BUILD.mkdir(parents=True, exist_ok=True)
@@ -85,10 +102,11 @@ def butterfly_counts() -> dict[str, dict]:
     result = {}
     for w in (32, 64):
         base = funcs[f"none_u{w}"]
-        for b in BUTTERFLIES:
+        for b in (f"{b}{p}" for b in BUTTERFLIES for p in ("", "_solinas")):
             c = funcs[f"{b}_u{w}"]
             diff = {k: v - base.get(k, 0) for k, v in c.items() if v != base.get(k, 0)}
             result[f"{b}_u{w}"] = {"instructions": sum(c.values()) - sum(base.values()),
+                                   "multiplies": multiplies(diff),
                                    "opcodes": dict(sorted(diff.items()))}
     return result
 
@@ -98,7 +116,8 @@ def main(argv=None) -> dict:
     ap.parse_args(argv)
     result = butterfly_counts()
     for name, r in result.items():
-        print(f"  {name}: {r['instructions']} SASS instructions ({r['opcodes']})")
+        print(f"  {name}: {r['instructions']} SASS instructions, {r['multiplies']} "
+              f"multiplies ({r['opcodes']})")
     print(json.dumps({"sass_per_butterfly": {k: v["instructions"] for k, v in result.items()}}))
     return result
 
