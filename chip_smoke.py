@@ -147,7 +147,34 @@ Phases, each of which raises on failure (nothing is caught):
    build phase): K1 / K2 at m14 batch 1024 (m10 batch 16384 at word 32),
    K4-K7 at m16 b128, m20 b16, m24 b1 (and the 27-bit q at m10), K8 at m24
    (and m10), one K9 / K10 stage;
-22. times: warm-up, minimum over repetitions, kernel and plain version in
+22. shard kernels vs plain (the dist slice): at the two-pass sizes of phase
+   6 and the dist path's default split for D = 2 and 8 (N1 raised to D),
+   K5 (strict, lazy, both output layouts) and K6 (from both layouts) on
+   the rows of every shard, [d N1/D, (d + 1) N1/D), and on the four chunks
+   of the last one (n_chunks 4), K4 and K7 (the whole transform's n^-1) on
+   N2/D lanes, and K8 with both twists on every row shard of the rec
+   split, against their plain versions on the same CUDA tensors, bit for
+   bit; K5 / K6 on one shard under the switch at 2^61 - 2^21 + 1 (m20),
+   their Solinas instantiations launched;
+23. the dist slice's main path: with every launch count set to 0,
+   ``dist_fwd_ntt`` (strict, lazy; n_chunks 1 and 4), ``dist_inv_ntt``
+   (n_chunks 1 and 4), ``dist_negacyclic_mul`` (n_chunks 1 and 4),
+   ``dist_rec_fwd_ntt`` (strict, lazy) / ``dist_rec_inv_ntt`` and
+   ``batch_parallel_fwd`` on a local mesh of 8 shards on this card at
+   m20 b16 (``dist_params(20)``, word 32, and ``bench_params(20, 62)``)
+   and m24 b1 (``bench_params(24, 62)``): forwards equal to the flat
+   'sixstep' (the lazy rec one mod q, below 4q), products to
+   ``api.negacyclic_mul``, round trips exact; K4-K8 launched on at least
+   8 shards at both widths (so at row0 != 0), K1-K3 launched; then
+   ``dist_fwd_ntt`` m20 through a 1-rank NCCL world (``init_multihost``,
+   ``all_to_all_single`` on CUDA tensors) equal to the flat form;
+24. dist times: one call's device time from a CUDA graph, the D = 1, 2 and
+   8 compositions (forward, inverse, product, rec forward) beside the flat
+   'sixstep' at the main path's three sizes, the D = 8 forward's
+   all-to-all with its copies on either side, and each shard launch (one
+   of 8) beside its bound and its plain version: the kernels line's
+   ``*_shard_*`` rows;
+25. times: warm-up, minimum over repetitions, kernel and plain version in
    turns, beside the card's name and power limit; each kernel's bound, the
    larger of its bytes over the memory rate and its integer multiplies
    over the multiply rate.  Every kernel is timed as the lab times it (a
@@ -199,6 +226,7 @@ import json
 import os
 import pathlib
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -270,6 +298,11 @@ MXU_QS = (0xFFF0001, 0x10001)
 MXU_LAST_M, MXU_WORDS_LOG = 20, 20
 MXU_TIMED = ((14, BATCH_HE), (16, 128), (20, 16))
 LIMB_KERNELS = ("limb_matmul_left", "limb_matmul_right")
+# The dist slice: the shards of its main path (a local mesh on this card), the
+# shard counts whose every row0 the kernel checks run, and the compositions timed
+DIST_SHARDS = 8
+DIST_CHECK_SHARDS = (2, 8)
+DIST_TIMED_SHARDS = (1, 2, 8)
 CSRC = "ntt_tpu_torch/csrc/"
 LAB = "tools/pallas_lab.py:"
 LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
@@ -326,7 +359,7 @@ def every_m_batch(m: int) -> int:
 
 
 def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int,
-                solinas: bool = False):
+                solinas: bool = False, parts: int = 1):
     """(bytes, 32-bit multiplies) one launch must move and do: each input
     read once (the twiddle entries it uses included), each output written
     once.  The lab's transforms do K1's work; diag_math runs m rounds of
@@ -347,14 +380,17 @@ def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int,
     kernel's Solinas instantiation: a twiddle entry of a single product is
     one word (no Shoup constant), each single product SOLINAS_MULS[word]
     multiplies; the fused final stage's second product and r4_stage's dual
-    products stay Shoup."""
+    products stay Shoup.  With parts, a launch on a shard of 1 / parts of
+    each polynomial (the distributed six-step's): 1 / parts of the words,
+    of the butterflies and of the row twiddles and twist tables (a row
+    shard's rows), and all N1 column twiddles (a lane shard's columns)."""
     n, size = 1 << m, word // 8
-    data = 2 * batch * n * size
+    data = 2 * batch * n * size // parts
     shoup = SHOUP_MULS[word]
     prod = SOLINAS_MULS[word] if solinas else shoup  # a single product
     tw = 1 if solinas else 2  # words a twiddle entry of a single product
-    bfly = batch * n // 2 * prod  # one stage
-    final2 = batch * n // 2 * shoup  # the final stage's second product
+    bfly = batch * n // 2 * prod // parts  # one stage
+    final2 = batch * n // 2 * shoup // parts  # the final stage's second product
     n1 = 1 << n1_log
     twist_lo = 1 << (m - n1_log + 1) // 2
     twist_hi = (n >> n1_log) // twist_lo
@@ -370,9 +406,10 @@ def kernel_work(kernel: str, m: int, n1_log: int, batch: int, word: int,
         "mul_mod": (3 * batch * n * size, batch * n * MUL_MOD_MULS[word]),
         "fwd_cols": (data + tw * n1 * size, bfly * n1_log),
         "inv_cols": (data + tw * n1 * size, bfly * n1_log + final2),
-        "fwd_rows": (data + tw * (n - n1) * size, bfly * (m - n1_log)),
-        "inv_rows": (data + tw * (n - n1) * size, bfly * (m - n1_log)),
-        "twist_mul": (data + tw * n1 * (twist_hi + twist_lo) * size, 2 * batch * n * prod),
+        "fwd_rows": (data + tw * (n - n1) // parts * size, bfly * (m - n1_log)),
+        "inv_rows": (data + tw * (n - n1) // parts * size, bfly * (m - n1_log)),
+        "twist_mul": (data + tw * n1 // parts * (twist_hi + twist_lo) * size,
+                      2 * batch * n * prod // parts),
         "r2_stage": (data + tw * (n >> (n1_log + 1)) * size, bfly),
         "r4_stage": (data + (8 + tw) * (n >> (n1_log + 2)) * size,
                      batch * n // 4 * (prod + 4 * shoup)),
@@ -498,7 +535,7 @@ def main() -> int:
     from ntt_tpu_torch.kernels import (fused, fused_lab, mxu, pointwise, probes, radix2, radix4,
                                        rec, sixstep, twopass)
     from ntt_tpu_torch.kernels.elems import pick_ops
-    from ntt_tpu_torch.params import find_solinas_ntt_prime
+    from ntt_tpu_torch.params import dist_params, find_solinas_ntt_prime
     from ntt_tpu_torch.plan import get_plan
 
     dev = torch.device("cuda", 0)
@@ -1657,7 +1694,290 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels never launched by the CLI's sweep: {idle}")
 
+
+    # -- the dist slice: the distributed six-step on shard-shaped K4-K8 --------
+    # Phases 22-24: the shard launches against their plain versions on the
+    # same CUDA tensors, the dist entry points at full width on a local mesh
+    # of DIST_SHARDS shards on this card (and one forward through a 1-rank
+    # NCCL world, the all_to_all_single path on CUDA tensors), and the
+    # compositions' device times beside the flat 'sixstep'.
+    import torch.distributed as tdist
+
+    from ntt_tpu_torch.dist import sixstep as dist
+
+    # (params, batch) of the dist path: BASELINE.json configs[4]'s N = 2^20
+    # at both widths (dist_params' 30-bit q, the 62-bit bench q) and its
+    # N = 2^24 at word 64
+    dist_cases = {"m20-q30": (dist_params(20), 16), "m20-q62": (bench_params(20, 62), 16),
+                  "m24-q62": (bench_params(24, 62), 1)}
+
+    def rand_words(p, batch, words, below=1):
+        """(batch, words) values below ``below`` q (wrapping as the unsigned
+        words do), drawn on the card."""
+        dtype = mm.dtype_for(p.q)
+        x = torch.randint(0, p.q, (batch, words), generator=gen, device=dev, dtype=dtype)
+        if below > 1:
+            x += torch.randint(0, below, (batch, words), generator=gen, device=dev,
+                               dtype=dtype) * mm.s64(p.q)
+        return x
+
+    def shard_logs(plan, nd):
+        """(n1_log, n2_log, log2 D) of the dist path's default split at D."""
+        n1 = dist._split_for(plan, nd)
+        return n1, plan.m - n1, nd.bit_length() - 1
+
+    def check_row_shard(p, plan, ops, tabs, batch, n1, n2, row0, r, tag, word, quiet=True):
+        """K5 (strict, lazy, both layouts) and K6 (from both layouts) on rows
+        [row0, row0 + 2^r) against their plain versions."""
+        x = rand_words(p, batch, 1 << (r + n2), 4)  # K4's output: below 4q
+        for strict in (True, False):
+            for keep_t in (False, True):
+                note(f"fwd_rows_shard_{word}",
+                     twopass.fwd_rows(x, plan, n1, strict, keep_t, row0, r),
+                     sixstep.fwd_rows(x, ops, tabs.w, tabs.w_con, p.q, n1, strict, keep_t, row0,
+                                      r),
+                     f"{tag} K5 {'strict' if strict else 'lazy'}"
+                     f"{', kept transposed' if keep_t else ''}", quiet)
+        y = rand_words(p, batch, 1 << (r + n2))
+        for t_in in (False, True):
+            note(f"inv_rows_shard_{word}", twopass.inv_rows(y, plan, n1, t_in, row0, r),
+                 sixstep.inv_rows(y, ops, tabs.w_inv, tabs.w_inv_con, p.q, n1, t_in, row0, r),
+                 f"{tag} K6{' from the transposed layout' if t_in else ''}", quiet)
+
+    def dist_slice():
+        """Phases 22-24; returns the shard rows of the kernel table."""
+        phase(f"shard kernels vs plain: K5 (strict, lazy, both layouts) and K6 (both layouts) "
+              f"at every row0 of D = {' and '.join(map(str, DIST_CHECK_SHARDS))} and on the "
+              f"four chunks of the last shard, K4 / K7 on N2/D lanes, K8 on every row shard: "
+              + ", ".join(f"{s} batch {b}" for s, b in TWO_PASS)
+              + "; K5 / K6 under the switch at q61 m20")
+        done = []
+        for size, batch in TWO_PASS:
+            p = tp_params[size]
+            plan, ops = get_plan(p), pick_ops(p.q)
+            tabs = plan.device_tables(dev)
+            word = f"u{plan.word}"
+            for nd in DIST_CHECK_SHARDS:
+                n1, n2, dl = shard_logs(plan, nd)
+                rl, ll = n1 - dl, n2 - dl
+                tag = f"{size} b{batch} D{nd} (n1_log {n1})"
+                x = rand_words(p, batch, 1 << (n1 + ll), 4)
+                note(f"fwd_cols_shard_{word}", twopass.fwd_cols(x, plan, n1, n2_log=ll),
+                     sixstep.fwd_cols(x, ops, tabs.w, tabs.w_con, p.q, n1),
+                     f"{tag} K4 on 2^{ll} lanes, input < 4q", quiet=True)
+                x = rand_words(p, batch, 1 << (n1 + ll))
+                note(f"inv_cols_shard_{word}", twopass.inv_cols(x, plan, n1, n2_log=ll),
+                     sixstep.inv_cols(x, ops, tabs.w_inv, tabs.w_inv_con, *plan.inv_consts, p.q,
+                                      n1), f"{tag} K7 on 2^{ll} lanes", quiet=True)
+                shards = [(j << rl, rl) for j in range(nd)]
+                if rl >= 2:  # the chunks of n_chunks 4 in the last shard
+                    shards += [(((nd - 1) << rl) + (c << (rl - 2)), rl - 2) for c in range(4)]
+                for row0, r in shards:
+                    check_row_shard(p, plan, ops, tabs, batch, n1, n2, row0, r,
+                                    f"{tag} rows [{row0}, +2^{r})", word)
+                l1 = dist._rec_l1_for(plan, nd)
+                r8 = l1 - dl
+                for j in range(nd):
+                    x = rand_words(p, batch, 1 << (r8 + p.m - l1), 4)
+                    for inverse in (False, True):
+                        tw = tuple(t[j << r8:(j + 1) << r8] for t in tabs.twist(l1, inverse))
+                        note(f"twist_mul_shard_{word}",
+                             rec.twist_mul(x, plan, l1, inverse, j << r8, r8),
+                             sixstep.twist_mul(x, ops, tw, p.q),
+                             f"{tag} K8 rows [{j << r8}, +2^{r8}) of N1 = 2^{l1}", quiet=True)
+                done.append(f"{size} D{nd}")
+                del x
+            torch.cuda.empty_cache()
+        print(f"  K4 / K7 (N2/D lanes), K5 (strict, lazy, both layouts) and K6 (both layouts) "
+              f"at every row0 and the last shard's chunks, K8 (both twists) on every row shard "
+              f"equal to plain at {', '.join(done)}", flush=True)
+        with switch():
+            p = sol_params(61, 20)
+            plan, ops = get_plan(p), pick_ops(p.q)
+            tabs = plan.device_tables(dev)
+            n1, n2, dl = shard_logs(plan, 8)
+            before = dict(twopass.SOLINAS_LAUNCHES)
+            check_row_shard(p, plan, ops, tabs, 16, n1, n2, 3 << (n1 - dl), n1 - dl,
+                            f"Solinas q {p.q:#x} m20 b16 D8 rows [{3 << (n1 - dl)}, "
+                            f"+2^{n1 - dl})", "solinas_u64", quiet=False)
+            ran = {k: v - before[k] for k, v in twopass.SOLINAS_LAUNCHES.items() if v > before[k]}
+            if set(ran) != {"fwd_rows_solinas_u64", "inv_rows_solinas_u64"}:
+                raise AssertionError(f"the Solinas shard check launched {ran}")
+
+        phase(f"the dist slice's main path: dist_fwd_ntt (strict, lazy; n_chunks 1 and 4), "
+              f"dist_inv_ntt (n_chunks 1 and 4), dist_negacyclic_mul (n_chunks 1 and 4), "
+              f"dist_rec_fwd_ntt / dist_rec_inv_ntt and batch_parallel_fwd on a local mesh of "
+              f"{DIST_SHARDS} shards on this card, "
+              + ", ".join(f"{s} batch {b}" for s, (_, b) in dist_cases.items())
+              + "; dist_fwd_ntt m20 through a 1-rank NCCL world")
+        mesh = dist.default_mesh(DIST_SHARDS, device=dev)
+        ins = {s: (rand_dev(p, b), rand_dev(p, b)) for s, (p, b) in dist_cases.items()}
+        torch.cuda.synchronize()
+        for counts in (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES,
+                       twopass.SHARD_LAUNCHES, rec.LAUNCHES, rec.SHARD_LAUNCHES):
+            for k in counts:
+                counts[k] = 0
+        outs = {}
+        for s, (p, b) in dist_cases.items():
+            x, y = ins[s]
+            f = dist.dist_fwd_ntt(x, p, mesh)
+            outs[s] = {
+                "fwd": f, "fwd_c4": dist.dist_fwd_ntt(x, p, mesh, n_chunks=4),
+                "lazy": dist.dist_fwd_ntt(x, p, mesh, lazy=True),
+                "inv": dist.dist_inv_ntt(f, p, mesh),
+                "inv_c4": dist.dist_inv_ntt(f, p, mesh, n_chunks=4),
+                "prod": dist.dist_negacyclic_mul(x, y, p, mesh),
+                "prod_c4": dist.dist_negacyclic_mul(x, y, p, mesh, n_chunks=4),
+                "rec": dist.dist_rec_fwd_ntt(x, p, mesh),
+                "rec_lazy": dist.dist_rec_fwd_ntt(x, p, mesh, lazy=True)}
+            outs[s]["rec_inv"] = dist.dist_rec_inv_ntt(outs[s]["rec"], p, mesh)
+            if b % DIST_SHARDS == 0:
+                outs[s]["batch"] = dist.batch_parallel_fwd(x, p, mesh)
+        torch.cuda.synchronize()
+        launches8 = {k: v for c in (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES,
+                                     rec.LAUNCHES) for k, v in c.items() if v}
+        shard8 = {**twopass.SHARD_LAUNCHES, **rec.SHARD_LAUNCHES}
+        print(f"  launch counts of this path: {launches8}; on shards: "
+              f"{ {k: v for k, v in shard8.items() if v} }", flush=True)
+        need = [f"{k}_u{w}" for k in ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols",
+                                      "twist_mul") for w in (32, 64)]
+        # each call launches K4-K8 on all DIST_SHARDS shards, all but one at row0 != 0
+        few = [k for k in need if shard8[k] < DIST_SHARDS]
+        idle = [k for k in ("mul_mod_u32", "mul_mod_u64", "fwd_fused_u32", "fwd_fused_u64",
+                            "inv_fused_u32", "inv_fused_u64") if not launches8.get(k)]
+        if few or idle:
+            raise AssertionError(f"the dist path launched {few} on fewer than {DIST_SHARDS} "
+                                 f"shards and never launched {idle}")
+        for s, (p, b) in dist_cases.items():
+            x, y = ins[s]
+            o = outs[s]
+            flat = api.fwd_ntt(x, p, "sixstep")
+            for k in ("fwd", "fwd_c4", "rec", "batch"):
+                if k in o and not torch.equal(o[k], flat):
+                    raise AssertionError(f"{s}: dist {k} differs from the flat 'sixstep'")
+            if not torch.equal(o["lazy"], api.fwd_ntt(x, p, "sixstep", lazy=True)):
+                raise AssertionError(f"{s}: the lazy dist forward differs from the flat one")
+            r = mm.to_host(o["rec_lazy"])
+            if (r % np.uint64(p.q) != mm.to_host(flat)).any() or int(r.max()) >= 4 * p.q:
+                raise AssertionError(f"{s}: the lazy rec dist forward is not the flat one mod q "
+                                     "below 4q")
+            for k in ("inv", "inv_c4", "rec_inv"):
+                if not torch.equal(o[k], x):
+                    raise AssertionError(f"{s}: dist {k} round trip != a")
+            want = api.negacyclic_mul(x, y, p)
+            for k in ("prod", "prod_c4"):
+                if not torch.equal(o[k], want):
+                    raise AssertionError(f"{s}: dist {k} differs from api.negacyclic_mul")
+            print(f"  {s} (q {p.q:#x}) D{DIST_SHARDS}: forwards (strict, n_chunks 1 / 4, rec"
+                  f"{', batch-parallel' if 'batch' in o else ''}) and the lazy one equal to the "
+                  f"flat 'sixstep', rec lazy equal mod q and below 4q, products (n_chunks 1 / 4)"
+                  f" equal to api.negacyclic_mul, round trips (n_chunks 1 / 4, rec) exact",
+                  flush=True)
+        del outs, ins
+        torch.cuda.empty_cache()
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda")
+        try:
+            world = dist.default_mesh()
+            p, b = dist_cases["m20-q62"]
+            x = rand_dev(p, b)
+            before = twopass.LAUNCHES["fwd_rows_u64"]
+            got = dist.dist_fwd_ntt(x, p, world)
+            if twopass.LAUNCHES["fwd_rows_u64"] == before:
+                raise AssertionError("the NCCL world's forward launched no K5")
+            if not torch.equal(got, api.fwd_ntt(x, p, "sixstep")):
+                raise AssertionError("dist_fwd_ntt through a 1-rank NCCL world differs")
+            print(f"  dist_fwd_ntt m20-q62 b{b} through a 1-rank NCCL world ({tdist.get_backend()}, "
+                  f"{world}): equal to the flat 'sixstep'", flush=True)
+        finally:
+            tdist.destroy_process_group()
+
+        phase(f"dist times (device time from a CUDA graph of whole calls, min over reps; "
+              f"{smi}): the D = {' / '.join(map(str, DIST_TIMED_SHARDS))} compositions beside the "
+              f"flat 'sixstep', the D = {DIST_SHARDS} forward's all-to-all copies, the shard "
+              f"launches beside their bounds")
+        rows = []
+        for s, (p, b) in dist_cases.items():
+            plan, ops = get_plan(p), pick_ops(p.q)
+            tabs = plan.device_tables(dev)
+            word = f"u{plan.word}"
+            x, y = rand_dev(p, b), rand_dev(p, b)
+            f = api.fwd_ntt(x, p, "sixstep")
+            meshes = {nd: dist.default_mesh(nd, device=dev) for nd in DIST_TIMED_SHARDS}
+            us = {"flat fwd": lab.cuda_us(lambda v: api.fwd_ntt(v, p, "sixstep"), x, 3, 5),
+                  "flat inv": lab.cuda_us(lambda v: api.inv_ntt(v, p, "sixstep"), f, 3, 5),
+                  "flat product": lab.cuda_us(lambda v: api.negacyclic_mul(v, y, p), x, 3, 5)}
+            for nd, m_ in meshes.items():
+                us[f"D{nd} fwd"] = lab.cuda_us(lambda v: dist.dist_fwd_ntt(v, p, m_), x, 3, 5)
+                us[f"D{nd} inv"] = lab.cuda_us(lambda v: dist.dist_inv_ntt(v, p, m_), f, 3, 5)
+                us[f"D{nd} product"] = lab.cuda_us(
+                    lambda v: dist.dist_negacyclic_mul(v, y, p, m_), x, 3, 5)
+                us[f"D{nd} rec fwd"] = lab.cuda_us(lambda v: dist.dist_rec_fwd_ntt(v, p, m_),
+                                                    x, 3, 5)
+            # the D-shard forward's pieces: K4 and K5 on one shard, and the
+            # all-to-all with its copies on either side, for all D shards
+            nd = DIST_SHARDS
+            n1, n2, dl = shard_logs(plan, nd)
+            r, lanes = 1 << (n1 - dl), 1 << (n2 - dl)
+            (_, line), = meshes[nd].lines("x")
+            cols = [rand_words(p, b, (1 << n1) * lanes, 4) for _ in range(nd)]
+
+            def exchange(v):
+                sends = [c.view(b, nd, r, lanes).transpose(0, 1).contiguous() for c in v]
+                return [z.permute(1, 2, 0, 3).reshape(b, -1) for z in line.all_to_all(sends)]
+
+            us[f"D{nd} fwd all-to-all copies"] = lab.cuda_us(exchange, cols, 3, 5)
+            row0 = 3 * r
+            xr = rand_words(p, b, r << n2, 4)
+            yr = rand_words(p, b, r << n2)
+            xc = cols[0]
+            yc = rand_words(p, b, (1 << n1) * lanes)
+            l1 = dist._rec_l1_for(plan, nd)
+            r8 = (1 << l1) >> dl
+            x8 = rand_words(p, b, r8 << (p.m - l1), 4)
+            tw8 = tuple(t[3 * r8:4 * r8] for t in tabs.twist(l1, False))
+            runs = {
+                "fwd_cols": (n1, lambda: twopass.fwd_cols(xc, plan, n1, n2_log=n2 - dl),
+                             lambda: sixstep.fwd_cols(xc, ops, tabs.w, tabs.w_con, p.q, n1)),
+                "fwd_rows": (n1, lambda: twopass.fwd_rows(xr, plan, n1, True, False, row0,
+                                                          n1 - dl),
+                             lambda: sixstep.fwd_rows(xr, ops, tabs.w, tabs.w_con, p.q, n1, True,
+                                                      False, row0, n1 - dl)),
+                "inv_rows": (n1, lambda: twopass.inv_rows(yr, plan, n1, False, row0, n1 - dl),
+                             lambda: sixstep.inv_rows(yr, ops, tabs.w_inv, tabs.w_inv_con, p.q,
+                                                      n1, False, row0, n1 - dl)),
+                "inv_cols": (n1, lambda: twopass.inv_cols(yc, plan, n1, n2_log=n2 - dl),
+                             lambda: sixstep.inv_cols(yc, ops, tabs.w_inv, tabs.w_inv_con,
+                                                      *plan.inv_consts, p.q, n1)),
+                "twist_mul": (l1, lambda: rec.twist_mul(x8, plan, l1, False, 3 * r8, l1 - dl),
+                              lambda: sixstep.twist_mul(x8, ops, tw8, p.q)),
+            }
+            parts = []
+            for kernel, (split, kern, plain) in runs.items():
+                k_ms, p_ms = kernel_in_turns(torch, lab, kern, plain, 2)
+                b_ms, b_by = bound(*kernel_work(kernel, p.m, split, b, plan.word, parts=nd))
+                name = f"{kernel}_shard_{word}"
+                parts.append(f"{kernel} {k_ms * 1e3:.1f} us (bound {b_ms * 1e3:.1f}, "
+                             f"{b_ms / k_ms:.0%}; plain {p_ms * 1e3:.1f})")
+                rows.append({"name": name, "route": "cuda", "source": SOURCES[kernel],
+                             "replaces": REPLACES[kernel],
+                             "launches": shard8[f"{kernel}_{word}"],
+                             "max_abs_err": errs[name], "ms": k_ms, "plain_ms": p_ms,
+                             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                             "shape": f"{s} batch {b}, one of {nd} shards"})
+            print(f"  {s} b{b}: " + ", ".join(f"{k} {v:.1f} us" for k, v in us.items()),
+                  flush=True)
+            print(f"  {s} b{b}, one of {nd} shards (n1_log {n1}; K8 at N1 = 2^{l1}): "
+                  + ", ".join(parts), flush=True)
+            del x, y, f, cols, xr, yr, yc, x8
+            torch.cuda.empty_cache()
+        return rows
+
+
     sol_rows = solinas_slice()
+    dist_rows = dist_slice()
 
     phase(f"times (kernels from a CUDA graph of launches, plain versions and API calls "
           f"between CUDA events; min over reps; {smi})")
@@ -2071,6 +2391,7 @@ def main() -> int:
               + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in parts.items()), flush=True)
         del x, small
     table.extend(sol_rows)
+    table.extend(dist_rows)
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ntt_tpu"))

@@ -52,6 +52,14 @@
 //   * Blocks are numbered batch-fastest, so the blocks running together on
 //     the card work on the same rows of different polynomials and share the
 //     row twiddles in L2.
+//   * Shards (the distributed six-step, ntt_tpu_torch/dist/sixstep.py): the
+//     row passes take rows [row0, row0 + 2^rows_log) of the N1 rows, stored
+//     as a (2^rows_log, N2) polynomial of their own (or (N2, 2^rows_log)
+//     transposed); n1_log stays the global N1, which only the twiddle base
+//     N1 + row0 + r reads.  The column passes take a shard of N2 / D lanes
+//     as they are given it (n2_log the shard's): a column twiddle w[m + g]
+//     is the same for every lane.  A whole polynomial is rows_log = n1_log,
+//     row0 = 0.
 // Each is built with both reduction policies of modarith.cuh (ShoupRed,
 // SolinasRed; see ntt_fused.cu), 32 instantiations each.
 // All four run the register rounds of rounds.cuh on their tile (K4 / K5
@@ -160,7 +168,9 @@ inv_cols_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
 // K5 / K6's map: the TR = 2^vlog rows r0 .. r0 + TR - 1 of a row tile.  Word
 // x of row v is column x, the rows contiguous in device memory; in the
 // exchange buffer row v is a padded polynomial at v * pitch.  The lanes of a
-// warp walk the groups of a row fastest; row v's twiddle base is N1 + r0 + v.
+// warp walk the groups of a row fastest; row v's twiddle base is row_base +
+// r0 + v, row_base = N1 + row0 (row0: the first row of a shard, 0 for a
+// whole polynomial).
 // vec: the tile's input and output are 16-byte aligned (K6 sets it).
 template <typename T>
 struct RowRounds {
@@ -185,14 +195,14 @@ struct RowRounds {
 template <typename T, int K, class Red>
 __global__ void __launch_bounds__(kTileThreads, TwoPass<T>::kMinBlocks)
 fwd_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
-                const T* __restrict__ w_con, T q, int batch, int n1_log, int n2_log,
-                int tr_log, int pitch, int strict, int out_transposed, Red red) {
+                const T* __restrict__ w_con, T q, int batch, int row_base, int rows_log,
+                int n2_log, int tr_log, int pitch, int strict, int out_transposed, Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const size_t poly = (size_t)(blockIdx.x % batch) << (n1_log + n2_log);
+  const size_t poly = (size_t)(blockIdx.x % batch) << (rows_log + n2_log);
   const int r0 = (int)(blockIdx.x / batch) << tr_log;
   const size_t tile = poly + ((size_t)r0 << n2_log);
-  const RowRounds<T> tl{n2_log, tr_log, (1 << n1_log) + r0, pitch};
+  const RowRounds<T> tl{n2_log, tr_log, row_base + r0, pitch};
   const int count = 1 << (n2_log + tr_log);
   if (n2_log == 0) {  // rows of one word: no stages
     for (int i = threadIdx.x; i < count; i += blockDim.x) sm[tl.sm(i, 0)] = in[tile + i];
@@ -206,7 +216,7 @@ fwd_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
       const int k = i >> tr_log;
       const int rr = i & ((1 << tr_log) - 1);
       const T x = sm[tl.sm(rr, k)];
-      out[poly + ((size_t)k << n1_log) + r0 + rr] = strict ? reduce_4q_to_q<T>(x, q) : x;
+      out[poly + ((size_t)k << rows_log) + r0 + rr] = strict ? reduce_4q_to_q<T>(x, q) : x;
     }
   } else if ((1 << n2_log) >= V::n && (reinterpret_cast<size_t>(out) & 15) == 0) {
     typename V::type* g = reinterpret_cast<typename V::type*>(out + tile);
@@ -239,11 +249,11 @@ fwd_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
 template <typename T, int K, class Red>
 __global__ void __launch_bounds__(kTileThreads, TwoPass<T>::kMinBlocks)
 inv_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
-                const T* __restrict__ w_con, T q, int batch, int n1_log, int n2_log,
-                int tr_log, int pitch, int in_transposed, Red red) {
+                const T* __restrict__ w_con, T q, int batch, int row_base, int rows_log,
+                int n2_log, int tr_log, int pitch, int in_transposed, Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  const size_t poly = (size_t)(blockIdx.x % batch) << (n1_log + n2_log);
+  const size_t poly = (size_t)(blockIdx.x % batch) << (rows_log + n2_log);
   const int r0 = (int)(blockIdx.x / batch) << tr_log;
   const size_t tile = poly + ((size_t)r0 << n2_log);
   const int count = 1 << (n2_log + tr_log);
@@ -253,7 +263,7 @@ inv_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
   }
   const bool aligned =
       ((reinterpret_cast<size_t>(in) | reinterpret_cast<size_t>(out)) & 15) == 0;
-  const RowRounds<T> tl{n2_log, tr_log, (1 << n1_log) + r0, pitch, aligned};
+  const RowRounds<T> tl{n2_log, tr_log, row_base + r0, pitch, aligned};
   const T* gin = in + tile;
   if (in_transposed) {
     // R loads in flight a thread before its stores: count is a multiple of
@@ -265,7 +275,7 @@ inv_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
 #pragma unroll
       for (int u = 0; u < R; ++u) {
         const int i = i0 + u * blockDim.x;
-        x[u] = __ldg(in + poly + ((size_t)(i >> tr_log) << n1_log) + r0 + (i & mask));
+        x[u] = __ldg(in + poly + ((size_t)(i >> tr_log) << rows_log) + r0 + (i & mask));
       }
 #pragma unroll
       for (int u = 0; u < R; ++u) {
@@ -283,15 +293,22 @@ inv_rows_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restri
 // launchers
 // ---------------------------------------------------------------------------
 
-// Blocks of a pass: batch x (tiles of one polynomial); 0 if the shapes are
-// out of range.
-inline long long pass_blocks(int batch, int n1_log, int n2_log, int tile_log,
+// Blocks of a pass over polynomials (or shards) of 2^rows_log x 2^n2_log
+// words: batch x (tiles of one); 0 if the shapes are out of range.
+inline long long pass_blocks(int batch, int rows_log, int n2_log, int tile_log,
                              int tile_axis_log) {
-  if (batch < 1 || n1_log < 1 || n2_log < 0 || n1_log + n2_log > 30 ||
+  if (batch < 1 || rows_log < 0 || n2_log < 0 || rows_log + n2_log > 30 ||
       tile_log < 0 || tile_log > tile_axis_log)
     return 0;
   const long long blocks = (long long)batch << (tile_axis_log - tile_log);
   return blocks <= INT_MAX ? blocks : 0;
+}
+
+// Rows [row0, row0 + 2^rows_log) of the N1 = 2^n1_log rows of a polynomial
+// of at most 2^30 words: the shard a row pass takes.
+inline bool rows_in_range(int n1_log, int n2_log, int rows_log, int row0) {
+  return n1_log >= 1 && n2_log >= 0 && n1_log + n2_log <= 30 && rows_log >= 0 &&
+         rows_log <= n1_log && row0 >= 0 && row0 <= (1 << n1_log) - (1 << rows_log);
 }
 
 // K4-K7's rounds on a tile of 2^vlog transforms of 2^logn words: K stages
@@ -334,7 +351,7 @@ template <typename T, class Red = ShoupRed>
 int launch_fwd_cols(const void* in, void* out, const void* w, const void* w_con,
                     u64 q, int batch, int n1_log, int n2_log, int tc_log, void* stream,
                     Red red = Red()) {
-  const long long blocks = pass_blocks(batch, n1_log, n2_log, tc_log, n2_log);
+  const long long blocks = n1_log < 1 ? 0 : pass_blocks(batch, n1_log, n2_log, tc_log, n2_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
   int pitch;
   const size_t smem = round_smem<T>(n1_log, tc_log, pitch);
@@ -350,7 +367,7 @@ int launch_inv_cols(const void* in, void* out, const void* w, const void* w_con,
                     u64 q, u64 n_inv, u64 n_inv_con, u64 f_tmp, u64 f_con_lo,
                     int f_con_hi, int batch, int n1_log, int n2_log, int tc_log,
                     void* stream, Red red = Red()) {
-  const long long blocks = pass_blocks(batch, n1_log, n2_log, tc_log, n2_log);
+  const long long blocks = n1_log < 1 ? 0 : pass_blocks(batch, n1_log, n2_log, tc_log, n2_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
   int pitch;
   const size_t smem = round_smem<T>(n1_log, tc_log, pitch);
@@ -364,9 +381,11 @@ int launch_inv_cols(const void* in, void* out, const void* w, const void* w_con,
 
 template <typename T, class Red = ShoupRed>
 int launch_fwd_rows(const void* in, void* out, const void* w, const void* w_con,
-                    u64 q, int batch, int n1_log, int n2_log, int tr_log, int strict,
-                    int out_transposed, void* stream, Red red = Red()) {
-  const long long blocks = pass_blocks(batch, n1_log, n2_log, tr_log, n1_log);
+                    u64 q, int batch, int n1_log, int rows_log, int row0, int n2_log,
+                    int tr_log, int strict, int out_transposed, void* stream,
+                    Red red = Red()) {
+  const long long blocks = !rows_in_range(n1_log, n2_log, rows_log, row0)
+                               ? 0 : pass_blocks(batch, rows_log, n2_log, tr_log, rows_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
   int pitch;
   const size_t smem = round_smem<T>(n2_log, tr_log, pitch);
@@ -374,14 +393,16 @@ int launch_fwd_rows(const void* in, void* out, const void* w, const void* w_con,
   return launch_blocks(NTT_BY_LOG_R(fwd_rows_kernel, T, round_log(n2_log)), (int)blocks,
                        round_threads(n2_log, tr_log), smem,
                        stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q,
-                       batch, n1_log, n2_log, tr_log, pitch, strict, out_transposed, red);
+                       batch, (1 << n1_log) + row0, rows_log, n2_log, tr_log, pitch, strict,
+                       out_transposed, red);
 }
 
 template <typename T, class Red = ShoupRed>
 int launch_inv_rows(const void* in, void* out, const void* w, const void* w_con,
-                    u64 q, int batch, int n1_log, int n2_log, int tr_log,
-                    int in_transposed, void* stream, Red red = Red()) {
-  const long long blocks = pass_blocks(batch, n1_log, n2_log, tr_log, n1_log);
+                    u64 q, int batch, int n1_log, int rows_log, int row0, int n2_log,
+                    int tr_log, int in_transposed, void* stream, Red red = Red()) {
+  const long long blocks = !rows_in_range(n1_log, n2_log, rows_log, row0)
+                               ? 0 : pass_blocks(batch, rows_log, n2_log, tr_log, rows_log);
   if (blocks == 0) return (int)cudaErrorInvalidValue;
   int pitch;
   const size_t smem = round_smem<T>(n2_log, tr_log, pitch);
@@ -389,7 +410,8 @@ int launch_inv_rows(const void* in, void* out, const void* w, const void* w_con,
   return launch_blocks(NTT_BY_LOG_R(inv_rows_kernel, T, round_log(n2_log)), (int)blocks,
                        round_threads(n2_log, tr_log), smem,
                        stream, (const T*)in, (T*)out, (const T*)w, (const T*)w_con, (T)q,
-                       batch, n1_log, n2_log, tr_log, pitch, in_transposed, red);
+                       batch, (1 << n1_log) + row0, rows_log, n2_log, tr_log, pitch,
+                       in_transposed, red);
 }
 
 #undef NTT_BY_LOG_R
@@ -399,7 +421,10 @@ int launch_inv_rows(const void* in, void* out, const void* w, const void* w_con,
 // Plain C interface (see ntt_fused.cu).  Every launcher enqueues one launch on
 // `stream` over `batch` polynomials of N = 2^(n1_log + n2_log) in the layouts
 // above, with tiles of 2^tc_log columns or 2^tr_log rows, and returns the
-// cudaError_t of the launch; a nonzero value means the kernel never ran.
+// cudaError_t of the launch; a nonzero value means the kernel never ran.  The
+// row passes take `batch` shards of rows [row0, row0 + 2^rows_log) (a whole
+// polynomial: rows_log = n1_log, row0 = 0); the column passes a shard of
+// 2^n2_log lanes.
 extern "C" {
 
 #define NTT_TWOPASS_ENTRIES(W, T)                                                  \
@@ -411,17 +436,20 @@ extern "C" {
   }                                                                              \
   int ntt_fwd_rows_u##W(const void* in, void* out, const void* w,                \
                         const void* w_con, unsigned long long q, int batch,      \
-                        int n1_log, int n2_log, int tr_log, int strict,          \
-                        int out_transposed, void* stream) {                      \
-    return ntt::launch_fwd_rows<T>(in, out, w, w_con, q, batch, n1_log, n2_log,  \
-                                   tr_log, strict, out_transposed, stream);      \
+                        int n1_log, int rows_log, int row0, int n2_log,          \
+                        int tr_log, int strict, int out_transposed,              \
+                        void* stream) {                                          \
+    return ntt::launch_fwd_rows<T>(in, out, w, w_con, q, batch, n1_log,          \
+                                   rows_log, row0, n2_log, tr_log, strict,       \
+                                   out_transposed, stream);                      \
   }                                                                              \
   int ntt_inv_rows_u##W(const void* in, void* out, const void* w,                \
                         const void* w_con, unsigned long long q, int batch,      \
-                        int n1_log, int n2_log, int tr_log, int in_transposed,   \
-                        void* stream) {                                          \
-    return ntt::launch_inv_rows<T>(in, out, w, w_con, q, batch, n1_log, n2_log,  \
-                                   tr_log, in_transposed, stream);               \
+                        int n1_log, int rows_log, int row0, int n2_log,          \
+                        int tr_log, int in_transposed, void* stream) {           \
+    return ntt::launch_inv_rows<T>(in, out, w, w_con, q, batch, n1_log,          \
+                                   rows_log, row0, n2_log, tr_log,               \
+                                   in_transposed, stream);                       \
   }                                                                              \
   int ntt_inv_cols_u##W(const void* in, void* out, const void* w,                \
                         const void* w_con, unsigned long long q,                 \
@@ -451,19 +479,23 @@ NTT_TWOPASS_ENTRIES(64, ntt::u64)
   }                                                                              \
   int ntt_fwd_rows_solinas_u##W(const void* in, void* out, const void* w,        \
                                 const void* w_con, unsigned long long q,         \
-                                int batch, int n1_log, int n2_log, int tr_log,   \
-                                int strict, int out_transposed, int e, int k,    \
+                                int batch, int n1_log, int rows_log, int row0,   \
+                                int n2_log, int tr_log, int strict,              \
+                                int out_transposed, int e, int k,                \
                                 void* stream) {                                  \
-    return ntt::launch_fwd_rows<T>(in, out, w, w_con, q, batch, n1_log, n2_log,  \
-                                   tr_log, strict, out_transposed, stream,       \
+    return ntt::launch_fwd_rows<T>(in, out, w, w_con, q, batch, n1_log,          \
+                                   rows_log, row0, n2_log, tr_log, strict,       \
+                                   out_transposed, stream,                       \
                                    ntt::SolinasRed{e, k});                       \
   }                                                                              \
   int ntt_inv_rows_solinas_u##W(const void* in, void* out, const void* w,        \
                                 const void* w_con, unsigned long long q,         \
-                                int batch, int n1_log, int n2_log, int tr_log,   \
-                                int in_transposed, int e, int k, void* stream) { \
-    return ntt::launch_inv_rows<T>(in, out, w, w_con, q, batch, n1_log, n2_log,  \
-                                   tr_log, in_transposed, stream,                \
+                                int batch, int n1_log, int rows_log, int row0,   \
+                                int n2_log, int tr_log, int in_transposed,       \
+                                int e, int k, void* stream) {                    \
+    return ntt::launch_inv_rows<T>(in, out, w, w_con, q, batch, n1_log,          \
+                                   rows_log, row0, n2_log, tr_log,               \
+                                   in_transposed, stream,                        \
                                    ntt::SolinasRed{e, k});                       \
   }                                                                              \
   int ntt_inv_cols_solinas_u##W(const void* in, void* out, const void* w,        \

@@ -59,16 +59,18 @@ def max_logn(word: int) -> int:
     return (SMEM_BYTES // (word // 8)).bit_length() - 1
 
 
-def cuda_batch(a: torch.Tensor, plan: NttPlan) -> int:
+def cuda_batch(a: torch.Tensor, plan: NttPlan, n: int | None = None) -> int:
     """Check a CUDA input against what the transform kernels take (the
-    plan's dtype, last dim N, contiguous); return the batch."""
+    plan's dtype, last dim n, contiguous); return the batch.  n is the
+    plan's N, or a shard's word count (the distributed six-step's)."""
+    n = plan.n if n is None else n
     if a.dtype != plan.dtype:
         raise TypeError(f"expected {plan.dtype} for q={plan.q:#x}, got {a.dtype}")
-    if a.dim() < 1 or a.shape[-1] != plan.n:
-        raise ValueError(f"last dim must be N={plan.n}, got shape {tuple(a.shape)}")
+    if a.dim() < 1 or a.shape[-1] != n:
+        raise ValueError(f"last dim must be {n}, got shape {tuple(a.shape)}")
     if not a.is_contiguous():
         raise ValueError("the transform kernels take a contiguous tensor")
-    return a.numel() // plan.n
+    return a.numel() // n
 
 
 def _cuda_batch(a: torch.Tensor, plan: NttPlan) -> int:

@@ -27,7 +27,8 @@ tensor on the CPU and the kernel for a tensor on a CUDA device; it never
 falls back from one to the other.  ``LAUNCHES`` counts the kernel launches
 per width; ``SOLINAS_LAUNCHES`` those of K8's Solinas instantiation, which
 the wrapper launches under the NTT_MULMOD=solinas switch at a q of the
-Solinas form (both chained products switched; Ac and Bc unread).
+Solinas form (both chained products switched; Ac and Bc unread);
+``SHARD_LAUNCHES`` counts again, by entry point, those on a row shard.
 """
 
 from __future__ import annotations
@@ -43,19 +44,28 @@ from ntt_tpu_torch.plan import NttPlan
 
 LAUNCHES = {"twist_mul_u32": 0, "twist_mul_u64": 0}
 SOLINAS_LAUNCHES = {"twist_mul_solinas_u32": 0, "twist_mul_solinas_u64": 0}
+SHARD_LAUNCHES = dict.fromkeys([*LAUNCHES, *SOLINAS_LAUNCHES], 0)
 
 
-def twist_mul(a: torch.Tensor, plan: NttPlan, l1_log: int,
-              inverse: bool = False) -> torch.Tensor:
+def twist_mul(a: torch.Tensor, plan: NttPlan, l1_log: int, inverse: bool = False,
+              row0: int = 0, rows_log: int | None = None) -> torch.Tensor:
     """K8: (..., N) in the (N1, N2) layout, N1 = 2^l1_log, times the
     forward twist (or with inverse, the inverse twist); inputs < 4q,
-    outputs < 2q."""
+    outputs < 2q.  With rows_log, a shard of rows [row0, row0 +
+    2^rows_log), (..., 2^rows_log * N2), times those rows of the twist:
+    the kernel walks the shard as a polynomial of 2^rows_log rows, the
+    tables from their row row0 (the tables' rows are contiguous)."""
     if not 0 <= l1_log <= plan.m:
         raise ValueError(f"l1_log={l1_log} outside [0, {plan.m}] for N=2^{plan.m}")
+    rows_log = twopass._rows_log(l1_log, row0, rows_log)
+    m = rows_log + plan.m - l1_log
+    twopass._words(a, 1 << m)
     tw = plan.device_tables(a.device).twist(l1_log, inverse)
+    if rows_log != l1_log:
+        tw = tuple(t[row0 : row0 + (1 << rows_log)] for t in tw)
     if native.route(a) == "cpu":
         return sixstep.twist_mul(a, pick_ops(plan.q), tw, plan.q)
-    batch = cuda_batch(a, plan)
+    batch = cuda_batch(a, plan, 1 << m)
     out = torch.empty_like(a)
     if batch == 0:
         return out
@@ -65,9 +75,11 @@ def twist_mul(a: torch.Tensor, plan: NttPlan, l1_log: int,
     ptrs = (a_tab.data_ptr(), None if sol else a_con.data_ptr(), b_tab.data_ptr(),
             None if sol else b_con.data_ptr())
     with torch.cuda.device(a.device):
-        native.launch(name, a.data_ptr(), out.data_ptr(), *ptrs, plan.q, batch, plan.m, l1_log,
+        native.launch(name, a.data_ptr(), out.data_ptr(), *ptrs, plan.q, batch, m, rows_log,
                       *(sol or ()), native.stream(a.device))
     (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
+    if rows_log < l1_log:
+        SHARD_LAUNCHES[name] += 1
     return out
 
 

@@ -82,10 +82,14 @@ def _col_tw(w, m: int):
     return w[m : 2 * m].reshape(m, 1, 1)
 
 
-def _row_tw(w, m2: int, n1: int):
+def _row_tw(w, m2: int, n1: int, col0: int = 0, ncols: int | None = None):
     """Row twiddles of row stage s' (m2 = 2^s' groups per row): the slice
-    w[m2*N1 : 2*m2*N1] viewed (N1, m2), transposed to (m2, 1, N1)."""
-    return w[m2 * n1 : 2 * m2 * n1].reshape(n1, m2).T.reshape(m2, 1, n1)
+    w[m2*N1 : 2*m2*N1] viewed (N1, m2), transposed to (m2, 1, ncols) for
+    the ncols rows from row col0 (all N1 by default; JAX's ``_row_tw``
+    takes the same col0 / ncols, its columns being the rows here)."""
+    ncols = n1 if ncols is None else ncols
+    tw = w[m2 * n1 : 2 * m2 * n1].reshape(n1, m2)[col0 : col0 + ncols]
+    return tw.T.reshape(m2, 1, ncols)
 
 
 def fwd_phase1(a, ops, w, wc, q: int, n1: int, lanes: int):
@@ -97,29 +101,36 @@ def fwd_phase1(a, ops, w, wc, q: int, n1: int, lanes: int):
     return a
 
 
-def fwd_phase2(a, ops, w, wc, q: int, n1: int, n2: int, strict: bool = False):
-    """Forward row stages on the transposed view (..., N2, N1); with strict
-    the 4q -> q reduction is applied to the last stage's outputs."""
+def fwd_phase2(a, ops, w, wc, q: int, n1: int, n2: int, col0: int = 0,
+               ncols: int | None = None, strict: bool = False):
+    """Forward row stages on the transposed view (..., N2, ncols) of the
+    ncols rows from row col0 (all N1 by default: JAX's ``fwd_phase2`` with
+    col0 / ncols); with strict the 4q -> q reduction is applied to the last
+    stage's outputs."""
+    ncols = n1 if ncols is None else ncols
     logn2 = n2.bit_length() - 1
     if logn2 == 0:
         return ops.reduce_4q_to_q(a, q) if strict else a
     for s in range(logn2):
         m2, t = 1 << s, n2 >> (s + 1)
-        wo, wco = _row_tw(w, m2, n1), _row_tw(wc, m2, n1)
+        wo, wco = _row_tw(w, m2, n1, col0, ncols), _row_tw(wc, m2, n1, col0, ncols)
         post = None
         if strict and s == logn2 - 1:
             post = lambda v: ops.reduce_4q_to_q(v, q)  # noqa: E731
-        a = _stage(a, m2, t, n1, lambda x, y: ops.fwd_bfly(x, y, wo, wco, q),
+        a = _stage(a, m2, t, ncols, lambda x, y: ops.fwd_bfly(x, y, wo, wco, q),
                    post=post)
     return a
 
 
-def inv_phaseA(a, ops, w, wc, q: int, n1: int, n2: int):
-    """Inverse row stages (global m = N/2 .. N1) on (..., N2, N1)."""
+def inv_phaseA(a, ops, w, wc, q: int, n1: int, n2: int, col0: int = 0,
+               ncols: int | None = None):
+    """Inverse row stages (global m = N/2 .. N1) on (..., N2, ncols), the
+    ncols rows from row col0 (all N1 by default)."""
+    ncols = n1 if ncols is None else ncols
     for s in reversed(range(n2.bit_length() - 1)):
         m2, t = 1 << s, n2 >> (s + 1)
-        wo, wco = _row_tw(w, m2, n1), _row_tw(wc, m2, n1)
-        a = _stage(a, m2, t, n1, lambda x, y: ops.bkw_bfly(x, y, wo, wco, q))
+        wo, wco = _row_tw(w, m2, n1, col0, ncols), _row_tw(wc, m2, n1, col0, ncols)
+        a = _stage(a, m2, t, ncols, lambda x, y: ops.bkw_bfly(x, y, wo, wco, q))
     return a
 
 
@@ -144,9 +155,28 @@ def _split(n: int, n1_log: int):
     return 1 << n1_log, 1 << (logn - n1_log)
 
 
+def _row_shard(n: int, n1_log: int, row0: int, rows_log: int | None):
+    """(N1, N2, rows) of a row pass's input of last dim n: rows [row0, row0 +
+    2^rows_log) of the N1 = 2^n1_log rows of N2 words each (a whole
+    polynomial with rows_log None: rows = N1)."""
+    if rows_log is None:
+        if row0:
+            raise ValueError(f"row0={row0} needs rows_log")
+        n1, n2 = _split(n, n1_log)
+        return n1, n2, n1
+    if not (n1_log >= 1 and 0 <= rows_log <= n1_log
+            and 0 <= row0 <= (1 << n1_log) - (1 << rows_log)):
+        raise ValueError(f"rows [{row0}, {row0} + 2^{rows_log}) outside the 2^{n1_log} rows")
+    if n & (n - 1) or n < 1 << rows_log:
+        raise ValueError(f"last dim {n} is no power of two of at least 2^{rows_log}")
+    return 1 << n1_log, n >> rows_log, 1 << rows_log
+
+
 def fwd_cols(a, ops, w, wc, q: int, n1_log: int):
     """Forward column stages of a (..., N) rep in the (N1, N2) layout; lazy
-    output (< 4q), same layout."""
+    output (< 4q), same layout.  N2 is the last dim over N1: a shard of
+    N2 / D lanes of each row (the distributed six-step's) is (..., N1 * N2
+    / D), and the column twiddles are the same for every lane."""
     n1, n2 = _split(a.shape[-1], n1_log)
     lead = a.shape[:-1]
     out = fwd_phase1(a.reshape(lead + (n1, n2)), ops, w, wc, q, n1, n2)
@@ -154,29 +184,32 @@ def fwd_cols(a, ops, w, wc, q: int, n1_log: int):
 
 
 def fwd_rows(a, ops, w, wc, q: int, n1_log: int, strict: bool = True,
-             keep_transposed: bool = False):
+             keep_transposed: bool = False, row0: int = 0, rows_log: int | None = None):
     """Forward row stages of fwd_cols' output: (N1, N2) layout in; out in
     the (N1, N2) layout, or (N2, N1) with keep_transposed; < q with strict,
-    else < 4q."""
-    n1, n2 = _split(a.shape[-1], n1_log)
+    else < 4q.  With rows_log, a shard: rows [row0, row0 + 2^rows_log) of
+    the N1 = 2^n1_log rows, (rows, N2) in, (rows, N2) or (N2, rows) out."""
+    n1, n2, rows = _row_shard(a.shape[-1], n1_log, row0, rows_log)
     lead = a.shape[:-1]
-    t = a.reshape(lead + (n1, n2)).transpose(-1, -2)
-    t = fwd_phase2(t, ops, w, wc, q, n1, n2, strict=strict)
+    t = a.reshape(lead + (rows, n2)).transpose(-1, -2)
+    t = fwd_phase2(t, ops, w, wc, q, n1, n2, row0, rows, strict=strict)
     if not keep_transposed:
         t = t.transpose(-1, -2)
     return t.contiguous().reshape(a.shape)
 
 
-def inv_rows(a, ops, w, wc, q: int, n1_log: int, input_transposed: bool = False):
+def inv_rows(a, ops, w, wc, q: int, n1_log: int, input_transposed: bool = False,
+             row0: int = 0, rows_log: int | None = None):
     """Inverse row stages (global m = N/2 .. N1) of a (..., N) rep in the
-    (N1, N2) layout, or (N2, N1) with input_transposed; (N1, N2) out."""
-    n1, n2 = _split(a.shape[-1], n1_log)
+    (N1, N2) layout, or (N2, N1) with input_transposed; (N1, N2) out.  With
+    rows_log, a shard of rows [row0, row0 + 2^rows_log), as fwd_rows."""
+    n1, n2, rows = _row_shard(a.shape[-1], n1_log, row0, rows_log)
     lead = a.shape[:-1]
     if input_transposed:
-        t = a.reshape(lead + (n2, n1))
+        t = a.reshape(lead + (n2, rows))
     else:
-        t = a.reshape(lead + (n1, n2)).transpose(-1, -2)
-    t = inv_phaseA(t, ops, w, wc, q, n1, n2)
+        t = a.reshape(lead + (rows, n2)).transpose(-1, -2)
+    t = inv_phaseA(t, ops, w, wc, q, n1, n2, row0, rows)
     return t.transpose(-1, -2).contiguous().reshape(a.shape)
 
 
@@ -184,7 +217,8 @@ def inv_cols(a, ops, w, wc, n_inv_op: int, n_inv_con: int, final_tmp: int,
              final_con: int, q: int, n1_log: int):
     """Inverse column stages (global m = N1/2 .. 2) and the fused final n^-1
     stage of inv_rows' output, (N1, N2) layout; strict output in the
-    standard order."""
+    standard order.  N2 is the last dim over N1, as in fwd_cols: a shard of
+    lanes takes the whole transform's n^-1 constants."""
     n1, n2 = _split(a.shape[-1], n1_log)
     lead = a.shape[:-1]
     out = inv_phaseB(a.reshape(lead + (n1, n2)), ops, w, wc, n_inv_op, n_inv_con,
@@ -226,7 +260,8 @@ def twist_mul(a, ops, tw, q: int):
     """The two-level six-step's twist (JAX ``sixstep._twist_mul``): a (..., N)
     rep in the (N1, N2) layout times T[c, h LO + l] = A[c, h] B[c, l], as two
     chained Shoup products, first by A, then by B; tw = (A, Ac, B, Bc) of
-    shapes (N1, HI) and (N1, LO).  Inputs < 4q, output < 2q."""
+    shapes (N1, HI) and (N1, LO), or a shard of rows: the tables' rows of
+    the shard, N1 its row count.  Inputs < 4q, output < 2q."""
     tw_a, tw_ac, tw_b, tw_bc = tw
     (n1, hi), lo = tw_a.shape, tw_b.shape[-1]
     v = a.reshape(a.shape[:-1] + (n1, hi, lo))

@@ -23,12 +23,20 @@ All four run register rounds on their tiles (``csrc/rounds.cuh``), whose
 size ``round_tile_log`` picks: K6 takes K5's row tile in the layout it
 reads, K7 K4's column tile.
 
+Shards (the distributed six-step, ``ntt_tpu_torch/dist/sixstep.py``): K5 /
+K6 take rows [row0, row0 + 2^rows_log) of the N1 rows as a polynomial of
+their own, (2^rows_log, N2) or transposed (N2, 2^rows_log), with the
+global n1_log for the twiddles; K4 / K7 take a shard of 2^n2_log of the N2
+lanes of every row, K7 with the whole transform's n^-1 constants.
+
 A wrapper runs the plain PyTorch version (``kernels/sixstep.py``) for a
 tensor on the CPU and the kernel for a tensor on a CUDA device; it never
 falls back from one to the other.  ``LAUNCHES`` counts the kernel launches
 per kernel and width; ``SOLINAS_LAUNCHES`` those of the Solinas
 instantiations, which a wrapper launches under the NTT_MULMOD=solinas switch
 at a q of the Solinas form (``kernels/fused.py``); they read no w_con.
+``SHARD_LAUNCHES`` counts again, by entry point, the launches on a shard
+(fewer rows or lanes than the whole polynomial's).
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ SECTOR_BYTES = 32  # one DRAM sector: the least a coalesced access should move
 KERNELS = ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols")
 LAUNCHES = {f"{k}_u{w}": 0 for k in KERNELS for w in (32, 64)}
 SOLINAS_LAUNCHES = {f"{k}_solinas_u{w}": 0 for k in KERNELS for w in (32, 64)}
+SHARD_LAUNCHES = dict.fromkeys([*LAUNCHES, *SOLINAS_LAUNCHES], 0)
 
 
 # K4-K7's tile: the shared memory it aims at; a column tile of short rows
@@ -76,7 +85,8 @@ def round_tile_log(n1_log: int, n2_log: int, word: int, rows: bool,
                    transposed: bool = False) -> int:
     """K4 / K7's tile (or with rows, K5 / K6's, storing or reading the
     (N2, N1) layout with transposed): log2 of its columns (TC) or rows
-    (TR).  A tile's row segments (K4, K7), or the words of a column it
+    (TR).  n1_log / n2_log are the rows and lanes of the polynomial or
+    shard the pass walks (a row shard's rows_log, a shard's lanes).  A tile's row segments (K4, K7), or the words of a column it
     moves together (K5 / K6 transposed), fill at least a sector (two on
     short rows); K5 / K6 in the (N1, N2) layout move whole rows and start
     from one.  The tile grows while its exchange buffer stays within
@@ -100,19 +110,40 @@ def round_tile_log(n1_log: int, n2_log: int, word: int, rows: bool,
     return lg
 
 
-def _logs(plan: NttPlan, n1_log: int) -> tuple[int, int]:
+def _logs(plan: NttPlan, n1_log: int, n2_log: int | None = None) -> tuple[int, int]:
+    """(n1_log, n2_log): the split, and the lanes of a shard (all N2 of
+    them with n2_log None)."""
     if not 1 <= n1_log <= plan.m:
         raise ValueError(f"n1_log={n1_log} outside [1, {plan.m}] for N=2^{plan.m}")
-    return n1_log, plan.m - n1_log
+    if n2_log is None:
+        return n1_log, plan.m - n1_log
+    if not 0 <= n2_log <= plan.m - n1_log:
+        raise ValueError(f"a shard of 2^{n2_log} lanes of N2=2^{plan.m - n1_log}")
+    return n1_log, n2_log
 
 
-def _launch(kernel: str, a: torch.Tensor, plan: NttPlan, w: torch.Tensor,
+def _rows_log(n1_log: int, row0: int, rows_log: int | None) -> int:
+    """The rows of a row pass's shard, [row0, row0 + 2^rows_log) of the
+    N1 = 2^n1_log rows (all of them with rows_log None)."""
+    if rows_log is None:
+        rows_log = n1_log
+    if not (0 <= rows_log <= n1_log and 0 <= row0 <= (1 << n1_log) - (1 << rows_log)):
+        raise ValueError(f"rows [{row0}, {row0} + 2^{rows_log}) outside the 2^{n1_log} rows")
+    return rows_log
+
+
+def _words(a: torch.Tensor, n: int) -> None:
+    if a.dim() < 1 or a.shape[-1] != n:
+        raise ValueError(f"last dim must be {n}, got shape {tuple(a.shape)}")
+
+
+def _launch(kernel: str, a: torch.Tensor, plan: NttPlan, n: int, w: torch.Tensor,
             w_con: torch.Tensor, before: tuple, after: tuple) -> torch.Tensor:
-    """Launch ``kernel`` at the plan's width into a new output, its Solinas
-    instantiation where the switch takes q; its launcher takes (in, out, w,
-    w_con, *before, batch, *after[, e, k], stream), w_con null for the
-    Solinas one."""
-    batch = cuda_batch(a, plan)
+    """Launch ``kernel`` at the plan's width over (..., n) (a shard where
+    n < N) into a new output, its Solinas instantiation where the switch
+    takes q; its launcher takes (in, out, w, w_con, *before, batch,
+    *after[, e, k], stream), w_con null for the Solinas one."""
+    batch = cuda_batch(a, plan, n)
     out = torch.empty_like(a)
     if batch == 0:
         return out
@@ -123,6 +154,8 @@ def _launch(kernel: str, a: torch.Tensor, plan: NttPlan, w: torch.Tensor,
                       None if sol else w_con.data_ptr(), *before, batch, *after,
                       *(sol or ()), native.stream(a.device))
     (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
+    if n < plan.n:
+        SHARD_LAUNCHES[name] += 1
     return out
 
 
@@ -140,53 +173,69 @@ def _col_plan(plan: NttPlan, n1_log: int, col_plan: NttPlan | None) -> NttPlan:
 
 
 def fwd_cols(a: torch.Tensor, plan: NttPlan, n1_log: int,
-             col_plan: NttPlan | None = None) -> torch.Tensor:
+             col_plan: NttPlan | None = None, n2_log: int | None = None) -> torch.Tensor:
     """K4: forward column stages of (..., N) in the (N1, N2) layout; lazy
     output (< 4q) in the same layout.  With ``col_plan`` the stages read
-    its tables (see ``_col_plan``): the same twiddles."""
-    n1_log, n2_log = _logs(plan, n1_log)
+    its tables (see ``_col_plan``): the same twiddles.  With n2_log, a
+    shard of 2^n2_log lanes of every row, (..., N1 * 2^n2_log)."""
+    n1_log, n2_log = _logs(plan, n1_log, n2_log)
+    _words(a, 1 << (n1_log + n2_log))
     tabs = _col_plan(plan, n1_log, col_plan).device_tables(a.device)
     if native.route(a) == "cpu":
         return sixstep.fwd_cols(a, pick_ops(plan.q), tabs.w, tabs.w_con, plan.q, n1_log)
     tc = round_tile_log(n1_log, n2_log, plan.word, rows=False)
-    return _launch("fwd_cols", a, plan, tabs.w, tabs.w_con, (plan.q,), (n1_log, n2_log, tc))
+    return _launch("fwd_cols", a, plan, 1 << (n1_log + n2_log), tabs.w, tabs.w_con,
+                   (plan.q,), (n1_log, n2_log, tc))
 
 
 def fwd_rows(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
-             keep_transposed: bool = False) -> torch.Tensor:
+             keep_transposed: bool = False, row0: int = 0,
+             rows_log: int | None = None) -> torch.Tensor:
     """K5: forward row stages of fwd_cols' output; (N1, N2) layout out, or
-    (N2, N1) with keep_transposed; < q with strict, else < 4q."""
+    (N2, N1) with keep_transposed; < q with strict, else < 4q.  With
+    rows_log, a shard of rows [row0, row0 + 2^rows_log): (rows, N2) in,
+    (rows, N2) or (N2, rows) out."""
     n1_log, n2_log = _logs(plan, n1_log)
+    rows_log = _rows_log(n1_log, row0, rows_log)
+    _words(a, 1 << (rows_log + n2_log))
     tabs = plan.device_tables(a.device)
     if native.route(a) == "cpu":
         return sixstep.fwd_rows(a, pick_ops(plan.q), tabs.w, tabs.w_con, plan.q, n1_log,
-                                strict, keep_transposed)
-    tr = round_tile_log(n1_log, n2_log, plan.word, rows=True, transposed=keep_transposed)
-    return _launch("fwd_rows", a, plan, tabs.w, tabs.w_con, (plan.q,),
-                   (n1_log, n2_log, tr, int(strict), int(keep_transposed)))
+                                strict, keep_transposed, row0, rows_log)
+    tr = round_tile_log(rows_log, n2_log, plan.word, rows=True, transposed=keep_transposed)
+    return _launch("fwd_rows", a, plan, 1 << (rows_log + n2_log), tabs.w, tabs.w_con,
+                   (plan.q,), (n1_log, rows_log, row0, n2_log, tr, int(strict),
+                               int(keep_transposed)))
 
 
-def inv_rows(a: torch.Tensor, plan: NttPlan, n1_log: int,
-             input_transposed: bool = False) -> torch.Tensor:
+def inv_rows(a: torch.Tensor, plan: NttPlan, n1_log: int, input_transposed: bool = False,
+             row0: int = 0, rows_log: int | None = None) -> torch.Tensor:
     """K6: inverse row stages of (..., N) in the (N1, N2) layout, or the
-    (N2, N1) layout with input_transposed; (N1, N2) layout out."""
+    (N2, N1) layout with input_transposed; (N1, N2) layout out.  With
+    rows_log, a shard of rows [row0, row0 + 2^rows_log), as fwd_rows."""
     n1_log, n2_log = _logs(plan, n1_log)
+    rows_log = _rows_log(n1_log, row0, rows_log)
+    _words(a, 1 << (rows_log + n2_log))
     tabs = plan.device_tables(a.device)
     if native.route(a) == "cpu":
         return sixstep.inv_rows(a, pick_ops(plan.q), tabs.w_inv, tabs.w_inv_con,
-                                plan.q, n1_log, input_transposed)
-    tr = round_tile_log(n1_log, n2_log, plan.word, rows=True, transposed=input_transposed)
-    return _launch("inv_rows", a, plan, tabs.w_inv, tabs.w_inv_con, (plan.q,),
-                   (n1_log, n2_log, tr, int(input_transposed)))
+                                plan.q, n1_log, input_transposed, row0, rows_log)
+    tr = round_tile_log(rows_log, n2_log, plan.word, rows=True, transposed=input_transposed)
+    return _launch("inv_rows", a, plan, 1 << (rows_log + n2_log), tabs.w_inv,
+                   tabs.w_inv_con, (plan.q,),
+                   (n1_log, rows_log, row0, n2_log, tr, int(input_transposed)))
 
 
 def inv_cols(a: torch.Tensor, plan: NttPlan, n1_log: int,
-             col_plan: NttPlan | None = None) -> torch.Tensor:
+             col_plan: NttPlan | None = None, n2_log: int | None = None) -> torch.Tensor:
     """K7: inverse column stages and the fused n^-1 stage of inv_rows'
     output; strict output in the standard order.  With ``col_plan`` the
     stages read its tables and n^-1 constants (``_col_plan``): the
-    two-level six-step's level-1 inverse scales by 1/N1."""
-    n1_log, n2_log = _logs(plan, n1_log)
+    two-level six-step's level-1 inverse scales by 1/N1.  With n2_log, a
+    shard of 2^n2_log lanes of every row, scaled by the whole transform's
+    constants."""
+    n1_log, n2_log = _logs(plan, n1_log, n2_log)
+    _words(a, 1 << (n1_log + n2_log))
     cols = _col_plan(plan, n1_log, col_plan)
     tabs = cols.device_tables(a.device)
     n_inv, n_inv_con, f_tmp, f_con = cols.inv_consts
@@ -195,6 +244,6 @@ def inv_cols(a: torch.Tensor, plan: NttPlan, n1_log: int,
                                 n_inv_con, f_tmp, f_con, plan.q, n1_log)
     tc = round_tile_log(n1_log, n2_log, plan.word, rows=False)
     mask = (1 << plan.word) - 1
-    return _launch("inv_cols", a, plan, tabs.w_inv, tabs.w_inv_con,
+    return _launch("inv_cols", a, plan, 1 << (n1_log + n2_log), tabs.w_inv, tabs.w_inv_con,
                    (plan.q, n_inv, n_inv_con, f_tmp, f_con & mask, f_con >> plan.word),
                    (n1_log, n2_log, tc))

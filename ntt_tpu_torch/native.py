@@ -39,8 +39,8 @@ _FUSED_FWD = [_P, _P, _P, _P, _U64, _I, _I, _I, _P]
 _FUSED_INV = [_P, _P, _P, _P, _U64, _U64, _U64, _U64, _U64, _I, _I, _I, _P]
 _MUL_MOD = [_P, _P, _P, _LL, _U64, _P]
 _FWD_COLS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P]
-_FWD_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _P]
-_INV_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P]
+_FWD_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_INV_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _P]
 _INV_COLS = [_P, _P, _P, _P, _U64, _U64, _U64, _U64, _U64, _I, _I, _I, _I, _I, _P]
 _FWD_V2 = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _P]
 _FWD_V3 = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _P]

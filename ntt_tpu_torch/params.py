@@ -188,3 +188,13 @@ def bench_params(m: int = 14, q_bits: int = 62, solinas: bool = False) -> NttPar
         p = NttParams.generate(q_bits, m)
     p.validate()
     return p
+
+
+@functools.lru_cache(maxsize=None)
+def dist_params(m: int, q_bits: int = 30) -> NttParams:
+    """The distributed six-step's instance (N = 2^20 .. 2^24 in the JAX
+    package's cases): N = 2^m with the largest q_bits-bit NTT prime
+    (``ntt_tpu.params.dist_params``)."""
+    p = NttParams.generate(q_bits, m)
+    p.validate()
+    return p
