@@ -147,7 +147,36 @@ Phases, each of which raises on failure (nothing is caught):
    build phase): K1 / K2 at m14 batch 1024 (m10 batch 16384 at word 32),
    K4-K7 at m16 b128, m20 b16, m24 b1 (and the 27-bit q at m10), K8 at m24
    (and m10), one K9 / K10 stage;
-22. shard kernels vs plain (the dist slice): at the two-pass sizes of phase
+22. Solinas lab kernels vs plain: under the switch, at the lab's q where it
+   takes the Solinas product (``bench_params(14, 62)`` = 2^62 - 2^16 + 1 at
+   m14, ``NttParams.generate(27, 10)`` = 2^27 - 2^11 + 1 at m10), batch 32,
+   inputs below 4q: L1 (both groups; strict, lazy, kept transposed; and at
+   n1_log 4), L2 (the same layouts) and ``diag_math`` (m rounds) against
+   their plain versions, bit for bit, L2 against K1; L2 at an N beyond a
+   thread's pairs refused by the Shoup and the Solinas launcher alike;
+23. the lab path under the switch: with every launch count set to 0,
+   ``python -m ntt_tpu_torch.lab --cases both --no-time`` at m14 and at
+   m10 (batch 512): every candidate bit-exact; at the switched width (word
+   64 at m14, word 32 at m10) every Solinas lab entry point (L1 of both
+   groups, L2, ``diag_math``) and K1 / K2's launched, and no Shoup L1 / L2
+   / ``diag_math``;
+24. the HE demo: ``python -m ntt_tpu_torch.examples.he_demo --check`` at its
+   defaults (m10, three 30-bit channels, batch 4) in-process: the big-int
+   product equal to the schoolbook one, device time between CUDA events;
+25. fuzz draws: tests/test_torch_fuzz.py's draw from ``--seed`` (a (q_bits,
+   m) pair redrawn until it has an NTT prime) at 13-29 bits / m6-m9, 31-60
+   bits / m6-m9 and 62 bits / m6-m8: radix2, sixstep, radix4 and r4r2
+   (q_bits <= 60), radix4-w56 (q_bits <= 52) through the API on the card,
+   each forward equal to its plain version and, at sampled outputs, to the
+   NTT by its definition, the lazy one within its bound, the round trip
+   exact; a negacyclic_mul at m5 equal to the schoolbook product;
+26. Solinas lab times: each Solinas lab kernel (L1 both groups, L2,
+   ``diag_math``) from a CUDA graph beside its Shoup twin at the same q
+   and shape (Shoup, Solinas, Solinas, Shoup; m14 batch 512 at word 64,
+   m10 batch 8192 at word 32), its plain version under the switch at batch
+   32, and its bound for the switched work: the kernel table's
+   ``*_solinas_*`` lab rows;
+27. shard kernels vs plain (the dist slice): at the two-pass sizes of phase
    6 and the dist path's default split for D = 2 and 8 (N1 raised to D),
    K5 (strict, lazy, both output layouts) and K6 (from both layouts) on
    the rows of every shard, [d N1/D, (d + 1) N1/D), and on the four chunks
@@ -156,7 +185,7 @@ Phases, each of which raises on failure (nothing is caught):
    split, against their plain versions on the same CUDA tensors, bit for
    bit; K5 / K6 on one shard under the switch at 2^61 - 2^21 + 1 (m20),
    their Solinas instantiations launched;
-23. the dist slice's main path: with every launch count set to 0,
+28. the dist slice's main path: with every launch count set to 0,
    ``dist_fwd_ntt`` (strict, lazy; n_chunks 1 and 4), ``dist_inv_ntt``
    (n_chunks 1 and 4), ``dist_negacyclic_mul`` (n_chunks 1 and 4),
    ``dist_rec_fwd_ntt`` (strict, lazy) / ``dist_rec_inv_ntt`` and
@@ -168,13 +197,13 @@ Phases, each of which raises on failure (nothing is caught):
    8 shards at both widths (so at row0 != 0), K1-K3 launched; then
    ``dist_fwd_ntt`` m20 through a 1-rank NCCL world (``init_multihost``,
    ``all_to_all_single`` on CUDA tensors) equal to the flat form;
-24. dist times: one call's device time from a CUDA graph, the D = 1, 2 and
+29. dist times: one call's device time from a CUDA graph, the D = 1, 2 and
    8 compositions (forward, inverse, product, rec forward) beside the flat
    'sixstep' at the main path's three sizes, the D = 8 forward's
    all-to-all with its copies on either side, and each shard launch (one
    of 8) beside its bound and its plain version: the kernels line's
    ``*_shard_*`` rows;
-25. times: warm-up, minimum over repetitions, kernel and plain version in
+30. times: warm-up, minimum over repetitions, kernel and plain version in
    turns, beside the card's name and power limit; each kernel's bound, the
    larger of its bytes over the memory rate and its integer multiplies
    over the multiply rate.  Every kernel is timed as the lab times it (a
@@ -534,6 +563,7 @@ def main() -> int:
     from ntt_tpu_torch import modmath as mm
     from ntt_tpu_torch.kernels import (fused, fused_lab, mxu, pointwise, probes, radix2, radix4,
                                        rec, sixstep, twopass)
+    from ntt_tpu_torch.examples import he_demo
     from ntt_tpu_torch.kernels.elems import pick_ops
     from ntt_tpu_torch.params import dist_params, find_solinas_ntt_prime
     from ntt_tpu_torch.plan import get_plan
@@ -1152,7 +1182,7 @@ def main() -> int:
             raise AssertionError(f"{tag}: round trip differs")
 
     # -- the Solinas slice: the NTT_MULMOD=solinas switch -----------------------
-    # Phases 18-21 flip the port's global modmath.USE_SOLINAS (restored in a
+    # Phases 18-26 flip the port's global modmath.USE_SOLINAS (restored in a
     # finally, which re-raises) and run the Solinas instantiations of K1, K2,
     # K4-K10 at q = 2^e - 2^k + 1 (find_solinas_ntt_prime): the headline
     # 2^62 - 2^16 + 1 up to m15, 2^61 - 2^21 + 1 to m20 and 2^61 - 2^26 + 1 to
@@ -1185,7 +1215,8 @@ def main() -> int:
                     radix4.LAUNCHES)
 
     def solinas_slice():
-        """Phases 18-21; returns the Solinas rows of the kernel table."""
+        """Phases 18-26 (24-25, the demo and the fuzz draws, off the switch);
+        returns the Solinas rows of the kernel table."""
         phase(f"Solinas instantiations vs plain under the switch: K1 / K2 at every m they "
               f"serve (q62, and q27 to m10), K4-K7 at every m from 1 to {TWO_PASS_LAST_M} "
               f"(q61; q27 to m10), K8 and sixstep-rec at m16-m24, the K9 / K10 variants at "
@@ -1474,6 +1505,181 @@ def main() -> int:
             del x, small
         print(f"  Solinas against Shoup (the kernel table's rows; K4-K7 at m16 and m10): "
               f"{json.dumps(rows)}", flush=True)
+
+        # the lab under the switch: L1 / L2 / diag_math at the lab's q of each
+        # word where it takes the Solinas product (the word-64 q at m14, the
+        # word-32 q at m10); the lab's path; the HE demo; a fuzz draw of each
+        # width; the Solinas lab kernels' times beside their Shoup twins
+        lab_sol = {64: lab.case_params("u64", 14), 32: lab.case_params("u32", 10)}
+        phase(f"Solinas lab kernels vs plain under the switch: L1 (both groups) and L2 "
+              f"(strict, lazy, kept transposed) and diag_math at m14 batch {LAB_BATCH_CHECK} "
+              f"(q {lab_sol[64].q:#x}) and m10 (q {lab_sol[32].q:#x}); L2's launcher "
+              "refusing an N beyond a thread's pairs under both policies")
+        with switch():
+            for word, p in lab_sol.items():
+                plan = get_plan(p)
+                sol = mm.solinas_args(p.q, word)
+                if sol is None:
+                    raise AssertionError(f"the lab's q {p.q:#x} takes no Solinas product")
+                n1 = lab.lab_split(p.m)
+                a = rand(p, LAB_BATCH_CHECK, hi=4 * p.q)
+                tag = f"q {p.q:#x} m{p.m} b{LAB_BATCH_CHECK}"
+                layouts = ((True, False), (False, False), (True, True))
+                for group in (1, 2):
+                    for strict, keep_t in layouts:
+                        note(f"fwd_fused_v2_r{2 * group}_solinas_u{word}",
+                             fused_lab.fwd_fused_v2(a, plan, n1, group, strict, keep_t),
+                             fused_lab.plain(a, plan, n1, strict, keep_t),
+                             f"{tag} L1 group {group} {strict} {keep_t}", quiet=True)
+                for strict, keep_t in layouts:
+                    note(f"fwd_fused_v3_solinas_u{word}",
+                         fused_lab.fwd_fused_v3(a, plan, n1, strict, keep_t),
+                         fused_lab.plain(a, plan, n1, strict, keep_t),
+                         f"{tag} L2 {strict} {keep_t}", quiet=True)
+                note(f"fwd_fused_v2_r4_solinas_u{word}", fused_lab.fwd_fused_v2(a, plan, 4),
+                     fused_lab.plain(a, plan, 4), f"{tag} L1 group 2 at n1_log 4", quiet=True)
+                note(f"fwd_fused_v3_solinas_u{word}", fused_lab.fwd_fused_v3(a, plan, 4),
+                     fused_lab.plain(a, plan, 4), f"{tag} L2 at n1_log 4", quiet=True)
+                if not torch.equal(fused_lab.fwd_fused_v3(a, plan, n1), fused.fwd_fused(a, plan)):
+                    raise AssertionError(f"{tag}: Solinas L2 differs from Solinas K1")
+                note(f"diag_math_solinas_u{word}", probes.diag_math(a, plan, p.m),
+                     probes.plain_math(a, plan, p.m), f"{tag} diag_math", quiet=True)
+                # one N beyond what L2's threads hold (and one block's shared
+                # memory): both policies' launchers refuse it before launching
+                big = fused.max_logn(word) + 1
+                buf = torch.zeros(1 << big, dtype=plan.dtype, device=dev)
+                tabs = plan.device_tables(dev)
+                for name, con, extra in ((f"fwd_fused_v3_u{word}", tabs.w_con.data_ptr(), ()),
+                                         (f"fwd_fused_v3_solinas_u{word}", None, sol)):
+                    try:
+                        native.launch(name, buf.data_ptr(), buf.data_ptr(), tabs.w.data_ptr(),
+                                      con, p.q, 1, big, big // 2, 1, 0, *extra,
+                                      native.stream(dev))
+                    except RuntimeError as err:
+                        if "failed to launch" not in str(err):
+                            raise
+                    else:
+                        raise AssertionError(f"{name} launched at N = 2^{big}")
+                print(f"  {tag}: Solinas {sol} L1 (groups 1 and 2), L2 (strict, lazy, kept "
+                      f"transposed; n1_log {n1} and 4) and diag_math ({p.m} rounds) equal to "
+                      f"plain, inputs < 4q; L2 equal to K1; L2 at N = 2^{big} refused by "
+                      "both instantiations", flush=True)
+                del a, buf
+
+        phase("the lab path under the switch: python -m ntt_tpu_torch.lab --cases both "
+              "--no-time at m14 and at m10, every launch count set to 0 before it")
+        lab_counts = (fused_lab.LAUNCHES, fused_lab.SOLINAS_LAUNCHES, probes.LAUNCHES,
+                      probes.SOLINAS_LAUNCHES, fused.LAUNCHES, fused.SOLINAS_LAUNCHES)
+        lab_launches = collections.Counter()
+        lab_kernels = fused_lab.KERNELS + ("diag_math",)
+        for word, p in lab_sol.items():
+            torch.cuda.synchronize()
+            for counts in lab_counts:
+                for k in counts:
+                    counts[k] = 0
+            with switch():
+                records = lab.main(["--cases", "both", "--no-time", "--m", str(p.m)])
+            torch.cuda.synchronize()
+            got = {k: v for c in lab_counts for k, v in c.items() if v}
+            print(f"  m{p.m}: launch counts {got}", flush=True)
+            if len(records) != 2 * len(lab.CANDIDATES) or not all(r["exact"] for r in records):
+                raise AssertionError(f"the lab path at m{p.m} did not check every candidate")
+            taken = {r["case"]: r["product"] for r in records}
+            if not taken[f"u{word}"].startswith("Solinas"):
+                raise AssertionError(f"m{p.m}: the u{word} case took {taken[f'u{word}']}")
+            want = [f"{k}_solinas_u{word}" for k in lab_kernels + ("fwd_fused", "inv_fused")]
+            idle = [k for k in want if not got.get(k)]
+            shoup = [f"{k}_u{word}" for k in lab_kernels if got.get(f"{k}_u{word}")]
+            if idle or shoup:
+                raise AssertionError(f"m{p.m}: Solinas entry points never launched {idle}; "
+                                     f"Shoup lab kernels launched at word {word}: {shoup}")
+            lab_launches.update({k: got[k] for k in want[:len(lab_kernels)]})
+            print(f"  m{p.m}: {len(records)} candidates bit-exact; products taken {taken}; "
+                  f"every Solinas lab entry point at word {word} launched, no Shoup L1 / L2 / "
+                  "diag_math there", flush=True)
+        launches.update(lab_launches)
+
+        phase("the HE demo on the card: python -m ntt_tpu_torch.examples.he_demo --check "
+              "(m10, three 30-bit channels, batch 4), in-process")
+        demo = he_demo.main(["--check"])
+        if not demo["checked"] or demo["device_ms"] is None:
+            raise AssertionError(f"the demo did not check on the card: {demo}")
+
+        phase(f"fuzz draws through the API on the card (seed {seed}, FUZZ_SEED-style): one "
+              "(q_bits, m) instance of each width against the plain versions and the NTT by "
+              "its definition, and negacyclic_mul at m5 against the schoolbook product")
+        frng = np.random.default_rng(seed)
+
+        def fuzz_draw(bits, ms):
+            """tests/test_torch_fuzz.py's draw: redrawn from the same
+            generator until the pair has an NTT prime."""
+            for _ in range(64):
+                q_bits, m = int(frng.integers(*bits)), int(frng.integers(*ms))
+                try:
+                    return q_bits, NttParams.generate(q_bits, m)
+                except ValueError:
+                    continue
+            raise AssertionError(f"no NTT prime in 64 draws (seed {seed})")
+
+        for bits, ms in (((13, 30), (6, 10)), ((31, 61), (6, 10)), ((62, 63), (6, 9))):
+            q_bits, p = fuzz_draw(bits, ms)
+            plan = get_plan(p)
+            host = frng.integers(0, p.q, size=(2, p.n), dtype=np.uint64)
+            names = ["radix2", "sixstep"] + (["radix4", "r4r2"] if q_bits <= api.R4_MAX_Q_BITS
+                                             else []) + (["radix4-w56"] if q_bits <= 52 else [])
+            js = sorted({0, 1, p.n - 1, *frng.integers(0, p.n, 4).tolist()})
+            want = [[direct_ntt_at(host[r], j, p) for j in js] for r in range(2)]
+            tag = f"seed {seed} q_bits {q_bits} m{p.m} q {p.q:#x}"
+            for name in names:
+                v = api.get_variant(name)
+                x = mm.from_host(host, p.q, dev, wide=v.word64)
+                f = api.fwd_ntt(x, p, name)
+                if name == "sixstep":  # the plain six-step (strict outputs: any split's)
+                    tabs = plan.device_tables(dev)
+                    plain_f = sixstep.fwd_sixstep(x, pick_ops(p.q), tabs.w, tabs.w_con, p.q)
+                else:
+                    plain_f = v.fwd(plan, x, False, plain=True)
+                if not torch.equal(f, plain_f):
+                    raise AssertionError(f"{tag} {name}: forward differs from plain")
+                hf = mm.to_host(f)
+                if [[int(hf[r, j]) for j in js] for r in range(2)] != want:
+                    raise AssertionError(f"{tag} {name}: forward differs from the NTT by its "
+                                         "definition")
+                lazy = mm.to_host(api.fwd_ntt(x, p, name, lazy=True))
+                if int(lazy.max()) >= lazy_bound(name, p.m) * p.q:
+                    raise AssertionError(f"{tag} {name}: lazy output beyond its bound")
+                if not torch.equal(api.inv_ntt(f, p, name), x):
+                    raise AssertionError(f"{tag} {name}: round trip differs")
+            print(f"  {tag}: {', '.join(names)} forward equal to plain and, at outputs {js} of "
+                  "both rows, to the NTT by its definition; lazy within bound; round trips "
+                  "exact", flush=True)
+        q_bits, p = fuzz_draw((20, 62), (5, 6))
+        x, y = rand(p, 2), rand(p, 2)
+        prod = api.negacyclic_mul(x, y, p)
+        hx, hy, hp = (mm.to_host(t) for t in (x, y, prod))
+        for r in range(2):
+            for k in range(p.n):
+                if int(hp[r, k]) != schoolbook_at(hx[r], hy[r], k, p):
+                    raise AssertionError(f"seed {seed} q {p.q:#x} m5: product coeff {k} differs")
+        print(f"  seed {seed} q_bits {q_bits} m5 q {p.q:#x}: negacyclic_mul equal to the "
+              "schoolbook product at every coefficient of both rows", flush=True)
+
+        phase(f"Solinas lab kernels against their Shoup twins at the same q and shape (kernels "
+              f"from a CUDA graph, in turns Shoup, Solinas, Solinas, Shoup; plain versions at "
+              f"batch {LAB_BATCH_CHECK} under the switch; {smi})")
+        lab_words = 512 << 14  # the lab's shape at m14, as many words at m10
+        for word, p in lab_sol.items():
+            plan = get_plan(p)
+            n1, batch = lab.lab_split(p.m), lab_words >> p.m
+            x = rand_dev(p, batch)
+            small = x[:LAB_BATCH_CHECK].contiguous()
+            cands = lab.candidates(plan, n1)
+            for cand_name in ("v2-r2", "v2-r4", "v3", "diag-math"):
+                cand = cands[cand_name]
+                timed(f"{cand.kernel}_solinas_u{word}", cand.fn, x,
+                      lambda: cand.plain(small), p, p.m, n1, batch, word,
+                      f"m{p.m} batch {batch}", plain_shape=f"m{p.m} batch {LAB_BATCH_CHECK}")
+            del x, small
         return rows
 
     phase(f"reference-family variants vs plain: every m from each one's least to "
@@ -1696,7 +1902,7 @@ def main() -> int:
 
 
     # -- the dist slice: the distributed six-step on shard-shaped K4-K8 --------
-    # Phases 22-24: the shard launches against their plain versions on the
+    # Phases 27-29: the shard launches against their plain versions on the
     # same CUDA tensors, the dist entry points at full width on a local mesh
     # of DIST_SHARDS shards on this card (and one forward through a 1-rank
     # NCCL world, the all_to_all_single path on CUDA tensors), and the
@@ -1745,7 +1951,7 @@ def main() -> int:
                  f"{tag} K6{' from the transposed layout' if t_in else ''}", quiet)
 
     def dist_slice():
-        """Phases 22-24; returns the shard rows of the kernel table."""
+        """Phases 27-29; returns the shard rows of the kernel table."""
         phase(f"shard kernels vs plain: K5 (strict, lazy, both layouts) and K6 (both layouts) "
               f"at every row0 of D = {' and '.join(map(str, DIST_CHECK_SHARDS))} and on the "
               f"four chunks of the last shard, K4 / K7 on N2/D lanes, K8 on every row shard: "

@@ -42,6 +42,14 @@
 // (N/2 / threads of them, at most 64 bytes' worth of words), runs their
 // butterflies, waits at a barrier, writes the interleave, and waits again:
 // two barriers a stage where L1 at G = 1 has one.
+//
+// Every single product goes through the reduction policy Red of modarith.cuh
+// (fwd_v2_kernel<T, G, Red>, fwd_v3_kernel<T, Red>): ShoupRed, or under the
+// NTT_MULMOD=solinas switch SolinasRed, the two-fold Solinas product of the
+// JAX lab's butterflies at q = 2^e - 2^k + 1 (tools/pallas_lab.py through
+// ops.fwd_bfly), which reads no Shoup constant.  The Solinas entry points
+// take the Shoup ones' arguments with (e, k) before the stream; L2's launcher
+// rejects the same shapes under either policy.
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
@@ -64,11 +72,11 @@ __device__ __forceinline__ void store_poly(const T* a, T* __restrict__ out, T q,
   }
 }
 
-template <typename T, int G>
+template <typename T, int G, class Red>
 __global__ void __launch_bounds__(kMaxThreads)
 fwd_v2_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
               const T* __restrict__ w_con, T q, int logn, int n1_log, int strict,
-              int keep_t) {
+              int keep_t, Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* a = reinterpret_cast<T*>(smem_raw);
   const int n = 1 << logn;
@@ -87,12 +95,14 @@ fwd_v2_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict
           const int g = j >> lt2;
           const int c0 = (g << (lt2 + 2)) | (j & (t2 - 1));
           T x0 = a[c0], x1 = a[c0 + t2], x2 = a[c0 + 2 * t2], x3 = a[c0 + 3 * t2];
-          const T wa = __ldg(w + m + g), wca = __ldg(w_con + m + g);
-          fwd_bfly<T>(x0, x2, wa, wca, q);
-          fwd_bfly<T>(x1, x3, wa, wca, q);
+          const T wa = __ldg(w + m + g), wca = Red::kCon ? __ldg(w_con + m + g) : (T)0;
+          fwd_bfly<T, Red>(x0, x2, wa, wca, q, red);
+          fwd_bfly<T, Red>(x1, x3, wa, wca, q, red);
           const int b = 2 * (m + g);
-          fwd_bfly<T>(x0, x1, __ldg(w + b), __ldg(w_con + b), q);
-          fwd_bfly<T>(x2, x3, __ldg(w + b + 1), __ldg(w_con + b + 1), q);
+          fwd_bfly<T, Red>(x0, x1, __ldg(w + b), Red::kCon ? __ldg(w_con + b) : (T)0, q,
+                           red);
+          fwd_bfly<T, Red>(x2, x3, __ldg(w + b + 1), Red::kCon ? __ldg(w_con + b + 1) : (T)0,
+                           q, red);
           a[c0] = x0;
           a[c0 + t2] = x1;
           a[c0 + 2 * t2] = x2;
@@ -105,7 +115,8 @@ fwd_v2_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict
           const StageIndex ix(j, lt);
           T x = a[ix.i0];
           T y = a[ix.i1];
-          fwd_bfly<T>(x, y, __ldg(w + m + ix.g), __ldg(w_con + m + ix.g), q);
+          fwd_bfly<T, Red>(x, y, __ldg(w + m + ix.g),
+                           Red::kCon ? __ldg(w_con + m + ix.g) : (T)0, q, red);
           a[ix.i0] = x;
           a[ix.i1] = y;
         }
@@ -151,11 +162,11 @@ struct StockhamPair {
   }
 };
 
-template <typename T>
+template <typename T, class Red>
 __global__ void __launch_bounds__(kMaxThreads)
 fwd_v3_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
               const T* __restrict__ w_con, T q, int logn, int n1_log, int strict,
-              int keep_t) {
+              int keep_t, Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* a = reinterpret_cast<T*>(smem_raw);
   const int n = 1 << logn;
@@ -174,7 +185,8 @@ fwd_v3_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict
         const StockhamPair sp(p, s, col, logn, n1_log);
         T x = a[sp.x];
         T y = a[sp.x + sp.dy];
-        fwd_bfly<T>(x, y, __ldg(w + sp.widx), __ldg(w_con + sp.widx), q);
+        fwd_bfly<T, Red>(x, y, __ldg(w + sp.widx), Red::kCon ? __ldg(w_con + sp.widx) : (T)0,
+                         q, red);
         xs[k] = x;
         ys[k] = y;
       }
@@ -194,26 +206,27 @@ fwd_v3_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict
   store_poly<T>(a, out + base, q, logn, n1_log, strict, keep_t);
 }
 
-template <typename T>
+template <typename T, class Red = ShoupRed>
 int launch_v2(const void* in, void* out, const void* w, const void* w_con, u64 q,
               int batch, int logn, int n1_log, int group, int strict, int keep_t,
-              void* stream) {
+              void* stream, Red red = Red()) {
   if (n1_log < 1 || n1_log > logn) return (int)cudaErrorInvalidValue;
   if (group != 1 && group != 2) return (int)cudaErrorInvalidValue;
-  return launch_per_poly<T>(group == 1 ? fwd_v2_kernel<T, 1> : fwd_v2_kernel<T, 2>, batch,
-                            logn, stream, (const T*)in, (T*)out, (const T*)w,
-                            (const T*)w_con, (T)q, logn, n1_log, strict, keep_t);
+  return launch_per_poly<T>(group == 1 ? fwd_v2_kernel<T, 1, Red> : fwd_v2_kernel<T, 2, Red>,
+                            batch, logn, stream, (const T*)in, (T*)out, (const T*)w,
+                            (const T*)w_con, (T)q, logn, n1_log, strict, keep_t, red);
 }
 
-template <typename T>
+template <typename T, class Red = ShoupRed>
 int launch_v3(const void* in, void* out, const void* w, const void* w_con, u64 q,
-              int batch, int logn, int n1_log, int strict, int keep_t, void* stream) {
+              int batch, int logn, int n1_log, int strict, int keep_t, void* stream,
+              Red red = Red()) {
   if (n1_log < 1 || n1_log > logn) return (int)cudaErrorInvalidValue;
   if (logn > 1 && (1 << (logn - 1)) > kPairs<T> * block_threads(logn))
     return (int)cudaErrorInvalidValue;  // more pairs than a thread holds
-  return launch_per_poly<T>(fwd_v3_kernel<T>, batch, logn, stream, (const T*)in, (T*)out,
-                            (const T*)w, (const T*)w_con, (T)q, logn, n1_log, strict,
-                            keep_t);
+  return launch_per_poly<T>(fwd_v3_kernel<T, Red>, batch, logn, stream, (const T*)in,
+                            (T*)out, (const T*)w, (const T*)w_con, (T)q, logn, n1_log,
+                            strict, keep_t, red);
 }
 
 }  // namespace
@@ -251,5 +264,26 @@ int ntt_fwd_fused_v3_u64(const void* in, void* out, const void* w, const void* w
   return ntt::launch_v3<ntt::u64>(in, out, w, w_con, q, batch, logn, n1_log, strict, keep_t,
                                   stream);
 }
+
+#define NTT_LAB_SOLINAS(W)                                                                \
+  int ntt_fwd_fused_v2_solinas_u##W(const void* in, void* out, const void* w,              \
+                                    const void* w_con, unsigned long long q, int batch,    \
+                                    int logn, int n1_log, int group, int strict,           \
+                                    int keep_t, int e, int k, void* stream) {              \
+    return ntt::launch_v2<ntt::u##W>(in, out, w, w_con, q, batch, logn, n1_log, group,      \
+                                     strict, keep_t, stream, ntt::SolinasRed{e, k});        \
+  }                                                                                         \
+  int ntt_fwd_fused_v3_solinas_u##W(const void* in, void* out, const void* w,              \
+                                    const void* w_con, unsigned long long q, int batch,    \
+                                    int logn, int n1_log, int strict, int keep_t, int e,   \
+                                    int k, void* stream) {                                 \
+    return ntt::launch_v3<ntt::u##W>(in, out, w, w_con, q, batch, logn, n1_log, strict,     \
+                                     keep_t, stream, ntt::SolinasRed{e, k});                \
+  }
+
+NTT_LAB_SOLINAS(32)
+NTT_LAB_SOLINAS(64)
+
+#undef NTT_LAB_SOLINAS
 
 }  // extern "C"

@@ -17,7 +17,12 @@
 //   diag_math_kernel   diag_math :455.  Each thread takes pairs (i, i + N/2)
 //                      into registers and runs n_rounds Harvey butterflies
 //                      under w[1] on them: the butterfly arithmetic with no
-//                      shared-memory traffic and no barriers.
+//                      shared-memory traffic and no barriers.  Its product
+//                      is a reduction policy of modarith.cuh: ShoupRed, or
+//                      SolinasRed under the NTT_MULMOD=solinas switch
+//                      (ntt_diag_math_solinas_u*, (e, k) before the
+//                      stream, no w_con read), as the Pallas probe's
+//                      ops.fwd_bfly takes the Solinas product there.
 //   diag_moves_kernel  diag_moves :479.  K1's stages (ntt_fused.cu:48-60)
 //                      with each butterfly replaced by a swap of its pair:
 //                      the same shared-memory accesses and barriers, no
@@ -29,7 +34,7 @@
 // What bounds them: copy and moves move 2 x N words through device memory a
 // polynomial and do no arithmetic (bytes); mul does 42 x word/32 32-bit
 // multiplies a word, about as long as its bytes at word 64; math does
-// n_rounds x N/2 Shoup butterflies.  None is tuned: each is K1's own
+// n_rounds x N/2 butterflies.  None is tuned: each is K1's own
 // structure with the other parts taken out.
 #include <cuda_runtime.h>
 
@@ -84,21 +89,21 @@ diag_mul_kernel(const T* __restrict__ in, T* __restrict__ out, u32 c, int n_mult
     out[base + i] = mad_word(a[i], c, n_mults);
 }
 
-template <typename T>
+template <typename T, class Red>
 __global__ void __launch_bounds__(kMaxThreads)
 diag_math_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
-                 const T* __restrict__ w_con, T q, int n_rounds, int logn) {
+                 const T* __restrict__ w_con, T q, int n_rounds, int logn, Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* a = reinterpret_cast<T*>(smem_raw);
   const int n = 1 << logn;
   const int half = n >> 1;
   const size_t base = (size_t)blockIdx.x << logn;
   load_poly<T>(a, in + base, n);
-  const T w1 = __ldg(w + 1), wc1 = __ldg(w_con + 1);
+  const T w1 = __ldg(w + 1), wc1 = Red::kCon ? __ldg(w_con + 1) : (T)0;
   for (int j = threadIdx.x; j < half; j += blockDim.x) {
     T x = a[j];
     T y = a[j + half];
-    for (int r = 0; r < n_rounds; ++r) fwd_bfly<T>(x, y, w1, wc1, q);
+    for (int r = 0; r < n_rounds; ++r) fwd_bfly<T, Red>(x, y, w1, wc1, q, red);
     out[base + j] = x;
     out[base + j + half] = y;
   }
@@ -148,9 +153,19 @@ extern "C" {
   int ntt_diag_math_u##W(const void* in, void* out, const void* w, const void* w_con, \
                          unsigned long long q, int n_rounds, int batch, int logn,     \
                          void* stream) {                                              \
-    return ntt::launch_per_poly<T>(ntt::diag_math_kernel<T>, batch, logn, stream,     \
-                                   (const T*)in, (T*)out, (const T*)w,                \
-                                   (const T*)w_con, (T)q, n_rounds, logn);            \
+    return ntt::launch_per_poly<T>(ntt::diag_math_kernel<T, ntt::ShoupRed>, batch,    \
+                                   logn, stream, (const T*)in, (T*)out, (const T*)w,  \
+                                   (const T*)w_con, (T)q, n_rounds, logn,             \
+                                   ntt::ShoupRed());                                  \
+  }                                                                                   \
+  int ntt_diag_math_solinas_u##W(const void* in, void* out, const void* w,           \
+                                 const void* w_con, unsigned long long q,            \
+                                 int n_rounds, int batch, int logn, int e, int k,    \
+                                 void* stream) {                                      \
+    return ntt::launch_per_poly<T>(ntt::diag_math_kernel<T, ntt::SolinasRed>, batch,  \
+                                   logn, stream, (const T*)in, (T*)out, (const T*)w,  \
+                                   (const T*)w_con, (T)q, n_rounds, logn,             \
+                                   ntt::SolinasRed{e, k});                            \
   }                                                                                   \
   int ntt_diag_moves_u##W(const void* in, void* out, int batch, int logn,            \
                           void* stream) {                                             \

@@ -35,6 +35,14 @@ design is in ``csrc/ntt_lab.cu``.
 A wrapper runs the plain version for a tensor on the CPU and the kernel
 for a tensor on a CUDA device; it never falls back from one to the other.
 ``LAUNCHES`` counts the kernel launches per kernel and width.
+
+Under the NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``, read at every
+call), at a q of the Solinas form of the plan's word
+(``modmath.solinas_args``), every butterfly takes the Solinas product, as
+the JAX lab's ``ops.fwd_bfly`` does there: a wrapper launches the kernel's
+Solinas instantiation (``csrc/modarith.cuh``'s SolinasRed), which reads no
+w_con table, and counts it in ``SOLINAS_LAUNCHES``; the plain version
+follows the same switch.
 """
 
 from __future__ import annotations
@@ -48,20 +56,9 @@ from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.kernels.fused import _cuda_batch
 from ntt_tpu_torch.plan import NttPlan
 
-LAUNCHES = {f"{k}_u{w}": 0 for k in ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
-            for w in (32, 64)}
-
-
-def refuse_switch(plan: NttPlan) -> None:
-    """Raise where the NTT_MULMOD=solinas switch changes the plan's single
-    product (``modmath.solinas_args``): the lab's kernels L1-L3 have no
-    Solinas instantiation, and the lab computes nothing rather than the
-    Shoup bits beside a plain side that computes the Solinas ones."""
-    if mm.solinas_args(plan.q, plan.word) is not None:
-        raise RuntimeError(
-            f"the lab's kernels have no Solinas instantiation: q={plan.q:#x} takes the "
-            "Solinas product under NTT_MULMOD=solinas (modmath.USE_SOLINAS); turn the "
-            "switch off for the lab")
+KERNELS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
+LAUNCHES = {f"{k}_u{w}": 0 for k in KERNELS for w in (32, 64)}
+SOLINAS_LAUNCHES = {f"{k}_solinas_u{w}": 0 for k in KERNELS for w in (32, 64)}
 
 
 def plain(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
@@ -82,17 +79,19 @@ def plain_inv(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
 
 def _launch(name: str, count: str, a: torch.Tensor, plan: NttPlan, n1_log: int,
             *args) -> torch.Tensor:
-    """Launch ``name`` at the plan's width and add one to LAUNCHES[count]."""
+    """Launch ``name`` at the plan's width, in its Solinas instantiation
+    where the switch takes the plan's q, and count it under ``count``."""
     batch = _cuda_batch(a, plan)
     out = torch.empty_like(a)
     if batch == 0:
         return out
     tabs = plan.device_tables(a.device)
+    sol = mm.solinas_args(plan.q, plan.word)
     with torch.cuda.device(a.device):
-        native.launch(f"{name}_u{plan.word}", a.data_ptr(), out.data_ptr(),
-                      tabs.w.data_ptr(), tabs.w_con.data_ptr(), plan.q, batch, plan.m,
-                      n1_log, *args, native.stream(a.device))
-    LAUNCHES[f"{count}_u{plan.word}"] += 1
+        native.launch(native.entry(name, plan.word, sol), a.data_ptr(), out.data_ptr(),
+                      tabs.w.data_ptr(), None if sol else tabs.w_con.data_ptr(), plan.q,
+                      batch, plan.m, n1_log, *args, *(sol or ()), native.stream(a.device))
+    (SOLINAS_LAUNCHES if sol else LAUNCHES)[native.entry(count, plan.word, sol)] += 1
     return out
 
 
@@ -101,7 +100,6 @@ def fwd_fused_v2(a: torch.Tensor, plan: NttPlan, n1_log: int, group: int = 2,
     """L1: forward NTT of (..., N) in rounds of ``group`` stages; output as
     ``fused.fwd_fused``'s or, with keep_transposed, in the (N2, N1) layout."""
     sixstep._split(plan.n, n1_log)
-    refuse_switch(plan)
     if group not in (1, 2):
         raise ValueError(f"group must be 1 or 2, got {group}")
     if native.route(a) == "cpu":
@@ -115,7 +113,6 @@ def fwd_fused_v3(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = Tru
     """L2: forward NTT of (..., N) by Stockham stages; outputs as
     fwd_fused_v2's."""
     sixstep._split(plan.n, n1_log)
-    refuse_switch(plan)
     if native.route(a) == "cpu":
         return plain(a, plan, n1_log, strict, keep_transposed)
     return _launch("fwd_fused_v3", "fwd_fused_v3", a, plan, n1_log, int(strict),

@@ -24,6 +24,13 @@ any batch.  A wrapper runs the plain version for a tensor on the CPU and the
 kernel for a tensor on a CUDA device, with no fallback; ``LAUNCHES`` counts
 the kernel launches per probe and width.  The design is in
 ``csrc/probes.cu``.
+
+Under the NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``, read at every
+call), at a q of the Solinas form of the plan's word, ``diag_math``'s
+butterflies take the Solinas product, as the Pallas probe's do: its wrapper
+launches the SolinasRed instantiation, which reads no w_con, and counts it
+in ``SOLINAS_LAUNCHES``; ``plain_math`` follows the same switch.  The other
+probes do no mod-q product.
 """
 
 from __future__ import annotations
@@ -32,7 +39,6 @@ import torch
 
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch import native
-from ntt_tpu_torch.kernels import fused_lab
 from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.kernels.fused import max_logn
 from ntt_tpu_torch.plan import NttPlan
@@ -41,6 +47,7 @@ MUL_C = 0x9E3779B1
 N_MULTS = 42
 
 LAUNCHES = {f"diag_{k}_u{w}": 0 for k in ("copy", "mul", "math", "moves") for w in (32, 64)}
+SOLINAS_LAUNCHES = {f"diag_math_solinas_u{w}": 0 for w in (32, 64)}
 
 
 def _word(a: torch.Tensor) -> int:
@@ -58,9 +65,10 @@ def _logn(a: torch.Tensor) -> int:
     return n.bit_length() - 1
 
 
-def _launch(probe: str, a: torch.Tensor, *args) -> torch.Tensor:
+def _launch(probe: str, a: torch.Tensor, *args, solinas=None) -> torch.Tensor:
     """Launch probe ``probe`` at a's width: (in, out, *args, batch, logn,
-    stream)."""
+    stream), its Solinas instantiation with (e, k) before the stream where
+    ``solinas`` is set."""
     word, logn = _word(a), _logn(a)
     if logn > max_logn(word):
         raise ValueError(f"N=2^{logn} at word {word} exceeds one block's shared memory")
@@ -70,11 +78,11 @@ def _launch(probe: str, a: torch.Tensor, *args) -> torch.Tensor:
     batch = a.numel() >> logn
     if batch == 0:
         return out
-    name = f"diag_{probe}_u{word}"
+    name = native.entry(f"diag_{probe}", word, solinas)
     with torch.cuda.device(a.device):
         native.launch(name, a.data_ptr(), out.data_ptr(), *args, batch, logn,
-                      native.stream(a.device))
-    LAUNCHES[name] += 1
+                      *(solinas or ()), native.stream(a.device))
+    (SOLINAS_LAUNCHES if solinas else LAUNCHES)[name] += 1
     return out
 
 
@@ -123,11 +131,12 @@ def diag_math(a: torch.Tensor, plan: NttPlan, n_rounds: int) -> torch.Tensor:
     _logn(a)
     if a.dtype != plan.dtype:
         raise TypeError(f"expected {plan.dtype} for q={plan.q:#x}, got {a.dtype}")
-    fused_lab.refuse_switch(plan)
     if native.route(a) == "cpu":
         return plain_math(a, plan, n_rounds)
     tabs = plan.device_tables(a.device)
-    return _launch("math", a, tabs.w.data_ptr(), tabs.w_con.data_ptr(), plan.q, n_rounds)
+    sol = mm.solinas_args(plan.q, plan.word)
+    return _launch("math", a, tabs.w.data_ptr(), None if sol else tabs.w_con.data_ptr(),
+                   plan.q, n_rounds, solinas=sol)
 
 
 def diag_moves(a: torch.Tensor) -> torch.Tensor:

@@ -30,8 +30,11 @@ events, after two warm-up calls, the minimum over ``--reps``), printed per
 transform beside the card's name and power limit.
 With ``--device cpu`` every candidate is its plain version and nothing is
 timed.  Under the NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``) a
-case whose q takes the Solinas product raises: the lab's kernels have no
-Solinas instantiation.
+case whose q takes the Solinas product (``modmath.solinas_args``: the
+word-64 q at m14, 2^62 - 2^16 + 1, and the word-32 q at m10,
+2^27 - 2^11 + 1) runs every candidate with it, K1 / K2 and L1-L3 in their
+Solinas instantiations, as the JAX lab does under the same switch; each
+case prints the product its butterflies took, and each time says it again.
 """
 
 from __future__ import annotations
@@ -143,13 +146,14 @@ def cuda_us(fn, x, reps: int, inner: int) -> float:
 def run_case(case: str, args, device: torch.device, where: str) -> list[dict]:
     p = case_params(case, args.m)
     plan = get_plan(p)
-    fused_lab.refuse_switch(plan)
+    sol = mm.solinas_args(plan.q, plan.word)  # the switch, read for this case
+    product = f"Solinas (e={sol[0]}, k={sol[1]})" if sol else "Shoup"
     n1_log = lab_split(p.m)
     rng = np.random.default_rng(0)
     x = mm.from_host(rng.integers(0, p.q, size=(args.batch, p.n), dtype=np.uint64), p.q,
                      device)
-    print(f"[{case}] q={p.q:#x} N=2^{p.m} batch={args.batch} n1_log={n1_log} on {where}",
-          flush=True)
+    print(f"[{case}] q={p.q:#x} N=2^{p.m} batch={args.batch} n1_log={n1_log}, single "
+          f"product {product}, on {where}", flush=True)
     cands = candidates(plan, n1_log)
     names = [n for n in CANDIDATES if not args.only or n in args.only]
     records, v1 = [], None
@@ -166,12 +170,13 @@ def run_case(case: str, args, device: torch.device, where: str) -> list[dict]:
                 raise AssertionError(f"[{case}] {name}: differs from {label}")
         what = " and ".join(refs)
         rec = {"case": case, "name": name, "m": p.m, "batch": args.batch, "exact": True,
-               "us_per_transform": None}
+               "product": product, "us_per_transform": None}
         line = f"  {name}: bit-exact against {what}"
         if not args.no_time and device.type == "cuda":
             us = cuda_us(cand.fn, x, args.reps, INNER) / args.batch
             rec["us_per_transform"] = us
-            line += f"; {us:.4f} us/transform ({1e6 / us:,.0f} transforms/s) on {where}"
+            line += (f"; {us:.4f} us/transform ({1e6 / us:,.0f} transforms/s, {product} "
+                     f"product) on {where}")
         print(line, flush=True)
         records.append(rec)
     return records

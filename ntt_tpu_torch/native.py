@@ -77,7 +77,8 @@ SIGNATURES = {
                       ("fwd_cols", _FWD_COLS), ("fwd_rows", _FWD_ROWS),
                       ("inv_rows", _INV_ROWS), ("inv_cols", _INV_COLS),
                       ("twist_mul", _TWIST), ("r2_stage", _R2_STAGE),
-                      ("r4_stage", _R4_STAGE))},
+                      ("r4_stage", _R4_STAGE), ("fwd_fused_v2", _FWD_V2),
+                      ("fwd_fused_v3", _FWD_V3), ("diag_math", _DIAG_MATH))},
 }
 
 

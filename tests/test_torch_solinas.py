@@ -220,17 +220,63 @@ JAX_CALLS = [
     ("pointwise", 62, 5, "mul"),
 ]
 
+# The JAX lab's kernels (tools/pallas_lab.py) under the switch, in interpret
+# mode at m6 batch 8, on inputs below 4q from a numpy seed, at the Solinas-form
+# q of each word: find_solinas_ntt_prime(62, 6) = 2^62 - 2^16 + 1 and (27, 6)
+# = 2^27 - 2^11 + 1.  (kind, q bits, n1_log, group or rounds, strict,
+# keep_transposed): L1 both groups, strict and lazy, at each word (n1_log 3
+# leaves a radix-2 tail round); L2 strict, lazy and kept transposed at each
+# word; diag_math (2 rounds at word 64, 6 at word 32).
+LAB_M, LAB_BATCH = 6, 8
+LAB_CALLS = [
+    ("v2", 62, 3, 1, True, False), ("v2", 62, 2, 2, False, True),
+    ("v2", 27, 2, 1, False, False), ("v2", 27, 3, 2, True, False),
+    ("v3", 62, 3, 0, True, False), ("v3", 62, 2, 0, False, True),
+    ("v3", 27, 2, 0, False, False), ("v3", 27, 3, 0, True, True),
+    ("math", 62, 3, 2, True, False), ("math", 27, 3, 6, True, False),
+]
+
 # Runs in a subprocess whose environment has NTT_MULMOD=solinas: the JAX
 # package reads the switch at import.  Its calls compile in a few threads.
 _JAX_SCRIPT = r"""
-import json, sys
+import functools, importlib.util, json, sys
 from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import jax
 jax.config.update("jax_platforms", "cpu")
+from jax.experimental import pallas as pl
 from ntt_tpu import api, modmath, params
+from ntt_tpu.kernels import elems
+from ntt_tpu.plan import get_plan
 assert modmath.USE_SOLINAS
-calls, path = json.loads(sys.argv[1]), sys.argv[2]
+calls, path, lab_calls = json.loads(sys.argv[1]), sys.argv[2], json.loads(sys.argv[3])
+lab_m, lab_batch = int(sys.argv[4]), int(sys.argv[5])
+spec = importlib.util.spec_from_file_location("pallas_lab", "tools/pallas_lab.py")
+jlab = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(jlab)
+# the lab's probes (_diag_call) take no interpret flag
+pl.pallas_call = functools.partial(pl.pallas_call, interpret=True)
+
+def run_lab(call):
+    kind, bits, n1_log, arg, strict, keep_t = call
+    p = params.NttParams.make(params.find_solinas_ntt_prime(bits, lab_m), lab_m)
+    plan = get_plan(p)
+    ops = elems.U32Ops if p.q < 1 << 30 else elems.U64Ops
+    a = np.random.default_rng(bits).integers(0, 4 * p.q, size=(lab_batch, p.n),
+                                             dtype=np.uint64)
+    rep, n1, n2 = ops.from_host(a), 1 << n1_log, p.n >> n1_log
+    tabs = plan.pallas_tables(False, n1_log, ops.nlimb)
+    if kind == "v2":
+        out = jlab.fwd_fused_v2(rep, ops, tabs, p.q, n1_log, group=arg, strict=strict,
+                                keep_transposed=keep_t, interpret=True)
+    elif kind == "v3":
+        wc = plan.w_con32 if ops is elems.U32Ops else plan.w_con
+        out = jlab.fwd_fused_v3(rep, ops, jlab.build_tables_v3(plan.w, wc, n1, n2, ops.nlimb),
+                                p.q, n1_log, strict=strict, keep_transposed=keep_t,
+                                interpret=True)
+    else:
+        out = jlab.diag_math(rep, ops, tabs, p.q, arg, n1, n2, lab_batch)
+    return np.asarray(ops.to_host(out))
 
 def run(call):
     name, bits, m, what = call
@@ -244,8 +290,13 @@ def run(call):
         return np.asarray(api.inv_ntt(a, p, name))
     return np.asarray(api.fwd_ntt(a, p, name, lazy=what == "lazy"))
 
+# one pool for both lists, the lab's interpret-mode calls submitted first
+jobs = [(run_lab, c, len(calls) + i) for i, c in enumerate(lab_calls)]
+jobs += [(run, c, i) for i, c in enumerate(calls)]
+outs = [None] * len(jobs)
 with ThreadPoolExecutor(4) as ex:
-    outs = list(ex.map(run, calls))
+    for (fn, c, i), out in zip(jobs, ex.map(lambda j: j[0](j[1]), jobs)):
+        outs[i] = out
 np.savez(path, *outs)
 """
 
@@ -256,16 +307,18 @@ def call_id(c):
 
 @pytest.fixture(scope="module")
 def jax_switched(tmp_path_factory):
-    """The JAX package's outputs of JAX_CALLS under NTT_MULMOD=solinas."""
+    """The JAX package's outputs of JAX_CALLS and the JAX lab's of
+    LAB_CALLS under NTT_MULMOD=solinas."""
     path = tmp_path_factory.mktemp("solinas") / "jax.npz"
     env = dict(os.environ, NTT_MULMOD="solinas", JAX_PLATFORMS="cpu",
                PYTHONPATH=str(REPO) + os.pathsep + os.environ.get("PYTHONPATH", ""))
     env.pop("NTT_MULHI64", None)
-    r = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, json.dumps(JAX_CALLS), str(path)],
+    r = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, json.dumps(JAX_CALLS), str(path),
+                        json.dumps(LAB_CALLS), str(LAB_M), str(LAB_BATCH)],
                        env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
     data = np.load(path)
-    return {tuple(c): data[f"arr_{i}"] for i, c in enumerate(JAX_CALLS)}
+    return {tuple(c): data[f"arr_{i}"] for i, c in enumerate(JAX_CALLS + LAB_CALLS)}
 
 
 def port_call(call):
@@ -286,6 +339,36 @@ def port_call(call):
 def test_transform_equals_jax_under_switch(jax_switched, monkeypatch, call):
     monkeypatch.setattr(mm, "USE_SOLINAS", True)
     np.testing.assert_array_equal(port_call(call), jax_switched[call])
+
+
+def lab_call_id(c):
+    kind, bits, n1_log, arg, strict, keep_t = c
+    what = {"v2": f"L1-group{arg}", "v3": "L2", "math": f"diag_math-{arg}rounds"}[kind]
+    if kind != "math":
+        what += f"-{'strict' if strict else 'lazy'}{'-keep_t' if keep_t else ''}-n1_log{n1_log}"
+    return f"q{bits}-{what}"
+
+
+@pytest.mark.parametrize("call", LAB_CALLS, ids=lab_call_id)
+def test_lab_kernel_equals_jax_lab_under_switch(jax_switched, monkeypatch, call):
+    """L1, L2 and diag_math on the CPU route (their plain versions, which
+    the kernels equal on the card) against the JAX lab under the switch,
+    lazy representatives included."""
+    monkeypatch.setattr(mm, "USE_SOLINAS", True)
+    kind, bits, n1_log, arg, strict, keep_t = call
+    p = NttParams.make(find_solinas_ntt_prime(bits, LAB_M), LAB_M)
+    plan = get_plan(p)
+    assert p.q == {62: Q62, 27: Q27}[bits] and mm.solinas_args(p.q, plan.word) is not None
+    a = np.random.default_rng(bits).integers(0, 4 * p.q, size=(LAB_BATCH, p.n),
+                                             dtype=np.uint64)
+    x = mm.from_host(a, p.q, "cpu")
+    if kind == "v2":
+        got = fused_lab.fwd_fused_v2(x, plan, n1_log, arg, strict, keep_t)
+    elif kind == "v3":
+        got = fused_lab.fwd_fused_v3(x, plan, n1_log, strict, keep_t)
+    else:
+        got = probes.diag_math(x, plan, arg)
+    np.testing.assert_array_equal(mm.to_host(got), jax_switched[call])
 
 
 # ----------------------------------------------------------------------------
@@ -468,27 +551,74 @@ def test_word56_launches_shoup_under_switch(fake_card, monkeypatch):
     assert [n for n, _ in fake_card] == ["r4_stage_w56"]
 
 
-def test_lab_raises_under_switch(monkeypatch):
-    """The lab's kernels have no Solinas instantiation: under the switch at a
-    q of the form the lab, its wrappers and its CLI raise (on the CPU too);
-    off the switch, or at a q it does not take, they run."""
-    p = bench_params(8, 62, solinas=True)
+def _drive_lab_wrappers(q: int, m: int = 6):
+    p = NttParams.make(q, m)
     plan = get_plan(p)
-    x = mm.from_host(np.zeros((1, p.n), dtype=np.uint64), p.q, "cpu")
+    x = mm.from_host(np.zeros((1, p.n), dtype=np.uint64), q, "cpu")
+    fused_lab.fwd_fused_v2(x, plan, 3, group=1)
+    fused_lab.fwd_fused_v2(x, plan, 3, group=2)
+    fused_lab.fwd_fused_v3(x, plan, 3)
+    probes.diag_math(x, plan, 2)
+    return plan.word
+
+
+LAB_KERNELS = ("fwd_fused_v2", "fwd_fused_v2", "fwd_fused_v3", "diag_math")
+LAB_COUNTS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3", "diag_math")
+
+
+@pytest.mark.parametrize("q,other", [(Q62, bench_params(16, 62, solinas=True).q),
+                                     (Q27, FIXTURES[9].q)], ids=hex)
+def test_lab_wrappers_launch_the_solinas_instantiation(fake_card, monkeypatch, q, other):
+    """Under the switch L1 (both groups), L2 and diag_math launch their
+    Solinas entry points with (e, k) and no w_con, counted in
+    SOLINAS_LAUNCHES; off the switch, and at a q of the word not of the
+    form, the Shoup ones, counted in LAUNCHES."""
+    counts = (fused_lab, probes)
+
+    def snapshot():
+        return ({k: v for c in counts for k, v in c.SOLINAS_LAUNCHES.items()},
+                {k: v for c in counts for k, v in c.LAUNCHES.items()})
+
     monkeypatch.setattr(mm, "USE_SOLINAS", True)
-    for call in (lambda: fused_lab.fwd_fused_v2(x, plan, 4),
-                 lambda: fused_lab.fwd_fused_v3(x, plan, 4),
-                 lambda: probes.diag_math(x, plan, 2),
-                 # the lab's word-64 q at m14 is the headline, 2^62 - 2^16 + 1
-                 lambda: lab.main(["--device", "cpu", "--m", "14", "--batch", "2", "--no-time",
-                                   "--cases", "u64"])):
-        with pytest.raises(RuntimeError, match="Solinas"):
-            call()
-    other = NttParams.make(FIXTURES[9].q, 8)  # not of the word-32 form
-    y = mm.from_host(np.zeros((1, other.n), dtype=np.uint64), other.q, "cpu")
-    fused_lab.fwd_fused_v3(y, get_plan(other), 4)
-    monkeypatch.setattr(mm, "USE_SOLINAS", False)
-    fused_lab.fwd_fused_v2(x, plan, 4)
+    sol0, shoup0 = snapshot()
+    word = _drive_lab_wrappers(q)
+    form = mm.solinas_args(q, word)
+    assert form is not None
+    assert [n for n, _ in fake_card] == [f"{k}_solinas_u{word}" for k in LAB_KERNELS]
+    for name, args in fake_card:
+        assert args[-3:-1] == form and args[3] is None, name  # (e, k); no w_con pointer
+    sol1, shoup1 = snapshot()
+    assert sol1 == {k: v + (k in {f"{c}_solinas_u{word}" for c in LAB_COUNTS})
+                    for k, v in sol0.items()}
+    assert shoup1 == shoup0
+    for on, at in ((False, q), (True, other)):
+        fake_card.clear()
+        monkeypatch.setattr(mm, "USE_SOLINAS", on)
+        assert _drive_lab_wrappers(at) == word and mm.solinas_args(at, word) is None
+        assert [n for n, _ in fake_card] == [f"{k}_u{word}" for k in LAB_KERNELS]
+        assert all(None not in args for _, args in fake_card)
+    sol2, shoup2 = snapshot()
+    assert sol2 == sol1
+    assert shoup2 == {k: v + 2 * (k in {f"{c}_u{word}" for c in LAB_COUNTS})
+                      for k, v in shoup1.items()}
+
+
+def test_lab_runs_every_candidate_under_switch(monkeypatch, capsys):
+    """python -m ntt_tpu_torch.lab --device cpu --m 8 under the switch: every
+    candidate of both cases equal to its plain versions; the word-32 q at
+    m8, 2^27 - 2^11 + 1, takes the Solinas product, the word-64 one,
+    bench_params(8, 62), is not of the form and keeps Shoup's."""
+    monkeypatch.setattr(mm, "USE_SOLINAS", True)
+    records = lab.main(["--device", "cpu", "--m", "8", "--batch", "8", "--no-time",
+                        "--cases", "both"])
+    assert [(r["case"], r["name"]) for r in records] == [
+        (case, name) for case in ("u32", "u64") for name in lab.CANDIDATES]
+    assert all(r["exact"] for r in records)
+    assert {r["case"]: r["product"] for r in records} == {"u32": "Solinas (e=27, k=11)",
+                                                          "u64": "Shoup"}
+    out = capsys.readouterr().out
+    assert out.count("bit-exact") == 2 * len(lab.CANDIDATES)
+    assert "single product Solinas (e=27, k=11)" in out and "single product Shoup" in out
 
 
 def test_cuda_default_raises_without_a_card_under_switch(monkeypatch):
