@@ -73,7 +73,10 @@ Phases, each of which raises on failure (nothing is caught):
    widths, inputs below 4q: L1 (fwd_fused_v2, two-stage and one-stage
    rounds, strict and lazy), L2 (fwd_fused_v3, strict, lazy, kept
    transposed) and the four L3 probes against their plain versions, bit
-   for bit;
+   for bit; diag_copy and diag_moves (on K1's design point) also against
+   ``clone`` / ``flip(-1)`` at every m from 1 to fused.max_logn(word), both
+   widths, batch 1, 3 and 133, and at m14 batch 3 on a tensor that is not
+   16-byte aligned;
 12. the lab path: with every launch count set to 0,
    ``python -m ntt_tpu_torch.lab --cases both --no-time`` (N = 2^14, batch
    512): every forward candidate equal to the plain six-step and to K1's
@@ -222,7 +225,10 @@ Phases, each of which raises on failure (nothing is caught):
    products; the lab kernels and K1 at the lab's shape, the lab
    kernels' plain versions at batch 32, and diag_copy's and diag_moves's
    one-call PyTorch equivalents (``clone``, ``flip``) as the lab kernels
-   are timed; each reference-family variant's forward and product at m14
+   are timed; K1's split at that shape by the two probes on its design
+   point (``lab.k1_split``: diag_copy, diag_moves - diag_copy, K1 -
+   diag_moves), each part beside ``clone`` / ``flip`` and its bound;
+   each reference-family variant's forward and product at m14
    batch 1024 beside K1's and 'auto''s (CUDA graph), K9 / K10 a stage
    beside their bounds (plain versions at batch 32), and 'radix2' /
    'radix4-u32' against 'pallas-fused' at m6-m8, batch 128 and 1024, in a
@@ -337,6 +343,7 @@ LAB = "tools/pallas_lab.py:"
 LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
 PROBES = ("diag_copy", "diag_mul", "diag_math", "diag_moves")
 LAB_BATCH_CHECK = 32
+LAB_EVERY_M_BATCHES = (1, 3, 133)  # diag_copy / diag_moves at every m K1 serves
 SOURCES = {"fwd_fused": CSRC + "ntt_fused.cu", "inv_fused": CSRC + "ntt_fused.cu",
            "mul_mod": CSRC + "pointwise.cu", "fwd_cols": CSRC + "ntt_sixstep.cu",
            "fwd_rows": CSRC + "ntt_sixstep.cu", "inv_rows": CSRC + "ntt_sixstep.cu",
@@ -1081,7 +1088,8 @@ def main() -> int:
     lab_cases = ("u32", "u64")
     lab_params = {c: lab.case_params(c, 14) for c in lab_cases}
     lab_n1 = lab.lab_split(14)
-    phase(f"lab kernels vs plain: m14 batch {LAB_BATCH_CHECK}, n1_log {lab_n1} (and 4)")
+    phase(f"lab kernels vs plain: m14 batch {LAB_BATCH_CHECK}, n1_log {lab_n1} (and 4); "
+          f"diag_copy / diag_moves at every m, batch {LAB_EVERY_M_BATCHES}")
     for case in lab_cases:
         p = lab_params[case]
         plan = get_plan(p)
@@ -1112,6 +1120,32 @@ def main() -> int:
              probes.plain_math(a, plan, p.m), f"{case} L3 diag_math, {p.m} rounds")
         note(f"diag_moves_{word}", probes.diag_moves(a), a.flip(-1), f"{case} L3 diag_moves")
         del a
+    # diag_copy / diag_moves run K1's design point: every m it serves; one
+    # block, a few, and one more than the card's 132 SMs; any word pattern
+    # (from a generator of their own, so later phases keep their inputs);
+    # and a tensor 4 / 8 bytes off 16-byte alignment
+    probe_rng = np.random.default_rng([seed, 14])
+    for word, dtype in ((32, torch.int32), (64, torch.int64)):
+        for m in range(1, fused.max_logn(word) + 1):
+            for batch in LAB_EVERY_M_BATCHES:
+                host = probe_rng.integers(-2**63, 2**63 - 1, size=(batch, 1 << m), dtype=np.int64)
+                a = torch.from_numpy(host).to(dev, dtype)
+                what = f"w{word} m{m} batch {batch}"
+                note(f"diag_copy_u{word}", probes.diag_copy(a), a.clone(), f"{what} diag_copy",
+                     quiet=True)
+                note(f"diag_moves_u{word}", probes.diag_moves(a), a.flip(-1),
+                     f"{what} diag_moves", quiet=True)
+        a = torch.from_numpy(probe_rng.integers(-2**63, 2**63 - 1, size=3 * 2**14 + 1,
+                                          dtype=np.int64)).to(dev, dtype)[1:].view(3, 2**14)
+        assert a.is_contiguous() and a.data_ptr() % 16 != 0
+        note(f"diag_copy_u{word}", probes.diag_copy(a), a.clone(),
+             f"w{word} m14 batch 3 unaligned diag_copy", quiet=True)
+        note(f"diag_moves_u{word}", probes.diag_moves(a), a.flip(-1),
+             f"w{word} m14 batch 3 unaligned diag_moves", quiet=True)
+    print(f"  diag_copy / diag_moves equal to clone() / flip(-1) at every m from 1 to "
+          f"{fused.max_logn(32)} / {fused.max_logn(64)} (w32 / w64), batch "
+          f"{', '.join(map(str, LAB_EVERY_M_BATCHES))}, and at m14 batch 3 unaligned",
+          flush=True)
 
     phase("lab path: python -m ntt_tpu_torch.lab --cases both --no-time (m14 batch 512)")
     torch.cuda.synchronize()
@@ -2579,7 +2613,7 @@ def main() -> int:
         small = x[:LAB_BATCH_CHECK].contiguous()
         cands = lab.candidates(plan, lab_n1)
         k1_ms = lab.cuda_us(cands["v1"].fn, x, 5, lab.INNER) / 1e3
-        parts = {}
+        parts, lib_times = {}, {}
         for cand_name, cand in cands.items():
             if cand_name in ("v1", "i1"):
                 continue
@@ -2589,12 +2623,26 @@ def main() -> int:
             p_ms = min(p1, cuda_ms(torch, lambda: cand.plain(small), 2))
             lib = library.get(cand.kernel)
             lib_ms = None if lib is None else lab.cuda_us(lib, x, 5, lab.INNER) / 1e3
+            lib_times[cand_name] = lib_ms
             entry(f"{cand.kernel}_{word}", launches3[f"{cand.kernel}_{word}"], k_ms, p_ms,
                   p.m, lab_n1, lab_batch, plan.word, f"m14 batch {lab_batch}", record=True,
                   library_ms=lib_ms, plain_shape=f"m14 batch {LAB_BATCH_CHECK}")
             parts[cand_name] = k_ms
         print(f"  {case} m14 batch {lab_batch}: K1 {k1_ms * 1e3:.1f} us against "
               + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in parts.items()), flush=True)
+        k1_again = lab.cuda_us(cands["v1"].fn, x, 5, lab.INNER) / 1e3
+        k1_best = min(k1_ms, k1_again)
+        split = lab.k1_split(k1_best, parts["diag-copy"], parts["diag-moves"])
+        k1_bound = bound(*kernel_work("fwd_fused", p.m, p.m, lab_batch, plan.word))[0]
+        data_bound = bound(*kernel_work("diag_copy", p.m, p.m, lab_batch, plan.word))[0]
+        print(f"  {case} K1's split at m14 batch {lab_batch} ({smi}): K1 {k1_best * 1e3:.1f} us "
+              f"(before / after the probes {k1_ms * 1e3:.1f} / {k1_again * 1e3:.1f}; bound "
+              f"{k1_bound * 1e3:.1f}) = " + " + ".join(f"{k} {v * 1e3:.1f} us"
+                                                       for k, v in split.items())
+              + f"; diag_copy {parts['diag-copy'] * 1e3:.1f} against clone() "
+              f"{lib_times['diag-copy'] * 1e3:.1f}, diag_moves {parts['diag-moves'] * 1e3:.1f} "
+              f"against flip(-1) {lib_times['diag-moves'] * 1e3:.1f}; bound of each "
+              f"{data_bound * 1e3:.1f} us", flush=True)
         del x, small
     table.extend(sol_rows)
     table.extend(dist_rows)

@@ -1,13 +1,19 @@
 // Cost probes L3: four kernels that each run one part of K1's work
-// (ntt_fused.cu) at K1's geometry (poly_block.cuh: one block per polynomial,
-// min(N/2, 1024) threads, the polynomial loaded once into dynamic shared
-// memory and stored once), at word 32 and word 64, so that their times split
-// K1's time on the card.  They replace the Pallas lab's diagnostic kernels
+// (ntt_fused.cu), at word 32 and word 64, so that their times split K1's
+// time on the card.  They replace the Pallas lab's diagnostic kernels
 // (tools/pallas_lab.py, all through _diag_call :419):
 //
-//   diag_copy_kernel   diag_copy :444.  Load, barrier, store: the memory
-//                      floor at K1's occupancy (at word 64 and N = 2^14 the
-//                      128 KB polynomial allows one block per SM).
+//   diag_copy_kernel   diag_copy :444.  K1's memory path alone, at K1's
+//                      design point (rounds.cuh: Fused<T>'s threads and
+//                      minimum blocks an SM, exchange_bytes<T>(logn) of
+//                      padded shared memory, so K1's occupancy): its first
+//                      round's coalesced load into registers at stride
+//                      N/16, the write of those registers into the
+//                      exchange buffer, one barrier, and copy_out's
+//                      coalesced 16-byte store.  No rounds, no exchanges:
+//                      the floor K1's memory path can reach at its
+//                      occupancy (at word 64 and N = 2^14 the 136 KB buffer
+//                      allows one block an SM).
 //   diag_mul_kernel    diag_mul :402.  Each thread takes its words from shared
 //                      memory into registers and runs n_mults chained
 //                      x * c + 1 (mod 2^32) on each 32-bit half, then stores:
@@ -23,13 +29,23 @@
 //                      (ntt_diag_math_solinas_u*, (e, k) before the
 //                      stream, no w_con read), as the Pallas probe's
 //                      ops.fwd_bfly takes the Solinas product there.
-//   diag_moves_kernel  diag_moves :479.  K1's stages (ntt_fused.cu:48-60)
-//                      with each butterfly replaced by a swap of its pair:
-//                      the same shared-memory accesses and barriers, no
-//                      arithmetic and no twiddle loads.  The Pallas probe also
-//                      moves the data through both transposes; K1 has none,
-//                      so neither has this.  Each stage flips one bit of the
-//                      index: the result is the polynomial reversed.
+//   diag_moves         diag_moves :479.  K1 itself, rounds_kernel<T, ...,
+//                      Swaps> (rounds.cuh), with the movement-only policy
+//                      in place of the reduction policy: K1's load, its
+//                      rounds with each butterfly a swap of its pair (no
+//                      twiddle read), its exchanges and barriers, and its
+//                      store.  Each stage flips one bit of the index: the
+//                      result is the polynomial reversed.  The Pallas probe
+//                      also moves the data through both transposes; K1 has
+//                      none, so neither has this.  It follows any later
+//                      redesign of K1's rounds by construction.
+//
+// diag_copy and diag_moves run K1's design point, so at the same shape
+// diag_copy is K1's memory path, diag_moves - diag_copy its exchanges and
+// barriers, and K1 - diag_moves what its butterflies and twiddle loads add.
+// diag_mul and diag_math keep K1's first geometry (poly_block.cuh: one block
+// per polynomial, min(N/2, 1024) threads, the polynomial loaded once into
+// dynamic shared memory and stored once).
 //
 // What bounds them: copy and moves move 2 x N words through device memory a
 // polynomial and do no arithmetic (bytes); mul does 42 x word/32 32-bit
@@ -40,19 +56,50 @@
 
 #include "modarith.cuh"
 #include "poly_block.cuh"
+#include "rounds.cuh"
 
 namespace ntt {
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+// K1's first round without its stages: each group's R = 2^K words from
+// device memory into registers (stride N / R) and into the exchange buffer,
+// one barrier, then copy_out.
+template <typename T, int K>
+__device__ __forceinline__ void copy_path(const T* __restrict__ gin, T* __restrict__ gout,
+                                          T* sm, int logn, bool vec) {
+  run_round<T, K, false>(gin, nullptr, sm, nullptr, nullptr, (T)0, Swaps(), FinalConsts<T>(),
+                         logn, 0, 0, vec);
+  __syncthreads();
+  copy_out<T>(gout, sm, 1 << logn, false, (T)0, vec);
+}
+
+template <typename T, int K, int THREADS, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
 diag_copy_kernel(const T* __restrict__ in, T* __restrict__ out, int logn) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a = reinterpret_cast<T*>(smem_raw);
-  const int n = 1 << logn;
-  const size_t base = (size_t)blockIdx.x << logn;
-  load_poly<T>(a, in + base, n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[base + i] = a[i];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const T* gin = in + ((size_t)blockIdx.x << logn);
+  T* gout = out + ((size_t)blockIdx.x << logn);
+  const bool vec = ((reinterpret_cast<size_t>(in) | reinterpret_cast<size_t>(out)) & 15) == 0;
+  switch (logn < K ? logn : K) {
+    case 1: copy_path<T, 1>(gin, gout, sm, logn, vec); break;
+    case 2: copy_path<T, kMin<K, 2>>(gin, gout, sm, logn, vec); break;
+    case 3: copy_path<T, kMin<K, 3>>(gin, gout, sm, logn, vec); break;
+    default: copy_path<T, K>(gin, gout, sm, logn, vec); break;
+  }
+}
+
+template <typename T>
+int launch_copy(const void* in, void* out, int batch, int logn, void* stream) {
+  typedef Fused<T> F;
+  return launch_fused<T>(diag_copy_kernel<T, F::kLogR, F::kThreads, F::kMinBlocks>, batch, logn,
+                         exchange_bytes<T>(logn), stream, (const T*)in, (T*)out, logn);
+}
+
+template <typename T>
+int launch_moves(const void* in, void* out, int batch, int logn, void* stream) {
+  return launch_rounds<T, false>(in, out, nullptr, nullptr, 0, FinalConsts<T>(), batch, logn,
+                                 0, stream, Swaps());
 }
 
 __device__ __forceinline__ u32 mad_step(u32 x, u32 c) {
@@ -109,28 +156,6 @@ diag_math_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restr
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-diag_moves_kernel(const T* __restrict__ in, T* __restrict__ out, int logn) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a = reinterpret_cast<T*>(smem_raw);
-  const int n = 1 << logn;
-  const size_t base = (size_t)blockIdx.x << logn;
-  load_poly<T>(a, in + base, n);
-  for (int s = 0; s < logn; ++s) {
-    const int lt = logn - 1 - s;
-    for (int j = threadIdx.x; j < (n >> 1); j += blockDim.x) {
-      const StageIndex ix(j, lt);
-      const T x = a[ix.i0];
-      const T y = a[ix.i1];
-      a[ix.i0] = y;
-      a[ix.i1] = x;
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < n; i += blockDim.x) out[base + i] = a[i];
-}
-
 }  // namespace
 }  // namespace ntt
 
@@ -142,8 +167,7 @@ extern "C" {
 #define NTT_PROBES(W, T)                                                              \
   int ntt_diag_copy_u##W(const void* in, void* out, int batch, int logn,             \
                          void* stream) {                                              \
-    return ntt::launch_per_poly<T>(ntt::diag_copy_kernel<T>, batch, logn, stream,     \
-                                   (const T*)in, (T*)out, logn);                      \
+    return ntt::launch_copy<T>(in, out, batch, logn, stream);                         \
   }                                                                                   \
   int ntt_diag_mul_u##W(const void* in, void* out, unsigned long long c, int n_mults, \
                         int batch, int logn, void* stream) {                          \
@@ -169,8 +193,7 @@ extern "C" {
   }                                                                                   \
   int ntt_diag_moves_u##W(const void* in, void* out, int batch, int logn,            \
                           void* stream) {                                             \
-    return ntt::launch_per_poly<T>(ntt::diag_moves_kernel<T>, batch, logn, stream,    \
-                                   (const T*)in, (T*)out, logn);                      \
+    return ntt::launch_moves<T>(in, out, batch, logn, stream);                        \
   }
 
 NTT_PROBES(32, ntt::u32)

@@ -42,6 +42,8 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 #include "modarith.cuh"
 #include "poly_block.cuh"
 
@@ -174,6 +176,13 @@ __device__ __forceinline__ void for_pairs(int first, const T* __restrict__ w,
   }
 }
 
+// The movement-only policy, in place of a reduction policy: each forward
+// butterfly becomes a swap of its pair and no twiddle is read.  A stage then
+// flips one bit of every word's index, so the whole forward reverses the
+// polynomial; the L3 probe diag_moves (probes.cu) runs K1 so, which leaves
+// K1's loads, exchanges, barriers and store without its arithmetic.
+struct Swaps {};
+
 // Forward local stages r .. ns - 1 on the registers of a group whose first
 // twiddle index is mb = 2^s0 + hi.
 template <typename T, int K, class Red, int r = 0>
@@ -183,13 +192,25 @@ __device__ __forceinline__ void fwd_stages(T (&x)[1 << K], const T* __restrict__
   if constexpr (r < K) {
     if (r < ns) {
       constexpr int half = (1 << K) >> (r + 1);
-      for_pairs<T, 1 << r, Red>(mb << r, w, w_con, [&](int b, T wv, T wc) {
+      if constexpr (std::is_same<Red, Swaps>::value) {
 #pragma unroll
-        for (int u = 0; u < half; ++u) {
-          const int i0 = b * 2 * half + u;
-          fwd_bfly<T>(x[i0], x[i0 + half], wv, wc, q, red);
+        for (int i0 = 0; i0 < (1 << K); i0 += 2 * half) {
+#pragma unroll
+          for (int u = 0; u < half; ++u) {
+            const T y = x[i0 + u];
+            x[i0 + u] = x[i0 + u + half];
+            x[i0 + u + half] = y;
+          }
         }
-      });
+      } else {
+        for_pairs<T, 1 << r, Red>(mb << r, w, w_con, [&](int b, T wv, T wc) {
+#pragma unroll
+          for (int u = 0; u < half; ++u) {
+            const int i0 = b * 2 * half + u;
+            fwd_bfly<T>(x[i0], x[i0 + half], wv, wc, q, red);
+          }
+        });
+      }
       fwd_stages<T, K, Red, r + 1>(x, w, w_con, q, red, mb, ns);
     }
   }
@@ -444,7 +465,8 @@ __device__ __forceinline__ void body(const T* __restrict__ in, T* __restrict__ o
 }
 
 // K1 (INV false) and K2 (INV true): one block per polynomial, rounds of up
-// to K stages (fewer where N < 2^K), the single product reduced by Red.
+// to K stages (fewer where N < 2^K), the single product reduced by Red; K1
+// with Red = Swaps is the probe diag_moves.
 template <typename T, int K, int THREADS, int MINB, bool INV, class Red>
 __global__ void __launch_bounds__(THREADS, MINB)
 rounds_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
@@ -476,24 +498,34 @@ struct Fused<u64> {
   static constexpr int kLogR = 4, kThreads = 512, kMinBlocks = 1;
 };
 
+// Launch `kernel` at the design point over batch polynomials of N = 2^logn
+// with smem bytes of dynamic shared memory: batch blocks of one thread a
+// group (N / 2^kLogR of them), at most kThreads, each then taking several
+// groups a round; the cudaError_t of the launch.
+template <typename T, typename... Params, typename... Args>
+int launch_fused(void (*kernel)(Params...), int batch, int logn, size_t smem, void* stream,
+                 Args... args) {
+  typedef Fused<T> F;
+  constexpr int K = F::kLogR;
+  if (batch < 1 || logn < 1 || logn > 24) return (int)cudaErrorInvalidValue;
+  const int groups = 1 << (logn - (logn < K ? logn : K));
+  const int threads = groups < F::kThreads ? groups : F::kThreads;
+  return launch_blocks(kernel, batch, threads, smem, stream, args...);
+}
+
 // One launch of K1 (INV false; strict or lazy) or K2 (INV true; fc: its
-// final stage's constants) at the design point over batch polynomials of N =
-// 2^logn: batch blocks of one thread a group (N / 2^kLogR of them), at most
-// kThreads, each then taking several groups a round; the cudaError_t of the
-// launch.
+// final stage's constants) at the design point; with Red = Swaps, K1's
+// movement alone (w, w_con and q unread).
 template <typename T, bool INV, class Red>
 int launch_rounds(const void* in, void* out, const void* w, const void* w_con, u64 q,
                   const FinalConsts<T>& fc, int batch, int logn, int strict, void* stream,
                   Red red) {
   typedef Fused<T> F;
   constexpr int K = F::kLogR;
-  if (batch < 1 || logn < 1 || logn > 24) return (int)cudaErrorInvalidValue;
-  const int groups = 1 << (logn - (logn < K ? logn : K));
-  const int threads = groups < F::kThreads ? groups : F::kThreads;
   const size_t smem = (logn > K || !INV) ? exchange_bytes<T>(logn) : 0;
-  return launch_blocks(rounds_kernel<T, K, F::kThreads, F::kMinBlocks, INV, Red>, batch,
-                       threads, smem, stream, (const T*)in, (T*)out, (const T*)w,
-                       (const T*)w_con, (T)q, fc, logn, strict, red);
+  return launch_fused<T>(rounds_kernel<T, K, F::kThreads, F::kMinBlocks, INV, Red>, batch,
+                         logn, smem, stream, (const T*)in, (T*)out, (const T*)w,
+                         (const T*)w_con, (T)q, fc, logn, strict, red);
 }
 
 }  // namespace ntt

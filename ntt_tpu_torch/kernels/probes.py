@@ -4,20 +4,29 @@ PyTorch versions and their wrappers.
 The counterpart of the Pallas lab's diagnostic kernels
 (``tools/pallas_lab.py``: ``diag_copy`` :444, ``diag_mul`` :402,
 ``diag_math`` :455, ``diag_moves`` :479, all through ``_diag_call`` :419).
-Each probe runs one part of K1's work (``kernels/fused.py``) at K1's
-geometry (one block per polynomial, ``min(N/2, 1024)`` threads, the
-polynomial loaded once into shared memory and stored once), so that their
-times split K1's:
+Each probe runs one part of K1's work (``kernels/fused.py``), so that
+their times split K1's:
 
-  * ``diag_copy``: the identity; the memory floor;
+  * ``diag_copy``: the identity, on K1's memory path alone at K1's design
+    point (``csrc/rounds.cuh``'s ``Fused<T>``: 512 threads, K1's shared
+    memory and occupancy): K1's first-round load into registers, one
+    barrier and its coalesced store, no rounds;
+  * ``diag_moves``: K1 itself with each butterfly replaced by a swap of its
+    pair (the movement-only policy ``Swaps``): K1's load, exchanges,
+    barriers and store without arithmetic or twiddle loads.  Each stage
+    flips one bit of the index, so the result is the polynomial reversed;
   * ``diag_mul``: every 32-bit half of every word takes ``x*c + 1 mod 2^32``
     42 times (c = 0x9E3779B1, as the Pallas probe): multiply throughput;
   * ``diag_math``: ``n_rounds`` Harvey butterflies of coefficient i with
-    i + N/2 under stage 0's twiddle w[1]: the arithmetic without movement;
-  * ``diag_moves``: K1's stages with each butterfly replaced by a swap of
-    its pair: the shared-memory movement and the barriers without
-    arithmetic.  Each stage flips one bit of the index, so the result is
-    the polynomial reversed.
+    i + N/2 under stage 0's twiddle w[1]: the arithmetic without movement.
+
+At the same shape ``diag_copy`` is K1's memory path, ``diag_moves -
+diag_copy`` its exchanges and barriers, and K1 - ``diag_moves`` what its
+butterflies and twiddle loads add (``lab.k1_split``).  ``diag_mul`` and
+``diag_math`` keep K1's first geometry (one block per polynomial,
+``min(N/2, 1024)`` threads, the polynomial loaded once into shared memory
+and stored once).  Every probe takes N up to ``fused.max_logn``, as K1,
+on either route.
 
 The Pallas probes take a batch that is a multiple of their tile; these take
 any batch.  A wrapper runs the plain version for a tensor on the CPU and the
@@ -59,10 +68,15 @@ def _word(a: torch.Tensor) -> int:
 
 
 def _logn(a: torch.Tensor) -> int:
+    """log2 N of a's polynomials, N within one block's shared memory (K1's
+    limit) at a's width."""
     n = a.shape[-1] if a.dim() else 0
     if n < 2 or n & (n - 1):
         raise ValueError(f"last dim must be a power of two >= 2, got shape {tuple(a.shape)}")
-    return n.bit_length() - 1
+    logn, word = n.bit_length() - 1, _word(a)
+    if logn > max_logn(word):
+        raise ValueError(f"N=2^{logn} at word {word} exceeds one block's shared memory")
+    return logn
 
 
 def _launch(probe: str, a: torch.Tensor, *args, solinas=None) -> torch.Tensor:
@@ -70,8 +84,6 @@ def _launch(probe: str, a: torch.Tensor, *args, solinas=None) -> torch.Tensor:
     stream), its Solinas instantiation with (e, k) before the stream where
     ``solinas`` is set."""
     word, logn = _word(a), _logn(a)
-    if logn > max_logn(word):
-        raise ValueError(f"N=2^{logn} at word {word} exceeds one block's shared memory")
     if not a.is_contiguous():
         raise ValueError("the probes take a contiguous tensor")
     out = torch.empty_like(a)
@@ -110,7 +122,7 @@ def plain_math(a: torch.Tensor, plan: NttPlan, n_rounds: int) -> torch.Tensor:
 
 
 def diag_copy(a: torch.Tensor) -> torch.Tensor:
-    """Each polynomial as it is."""
+    """Each polynomial as it is, through K1's load and store."""
     _logn(a)
     if native.route(a) == "cpu":
         return a.clone()
@@ -140,8 +152,7 @@ def diag_math(a: torch.Tensor, plan: NttPlan, n_rounds: int) -> torch.Tensor:
 
 
 def diag_moves(a: torch.Tensor) -> torch.Tensor:
-    """K1's pair movement with swaps for butterflies: each polynomial
-    reversed."""
+    """K1 with swaps for butterflies: each polynomial reversed."""
     _logn(a)
     if native.route(a) == "cpu":
         return a.flip(-1)

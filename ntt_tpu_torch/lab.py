@@ -16,9 +16,12 @@ it runs on one batch of random polynomials below q:
   * ``v3``: L2, the Stockham flow (``fused_lab.fwd_fused_v3``);
   * ``i1``: K2 (``kernels.fused.inv_fused``);
   * ``diag-copy``, ``diag-math`` (m rounds), ``diag-moves``, ``diag-mul``
-    (42 multiplies): the L3 probes (``kernels.probes``), which split the
-    first K1 design's time into memory, arithmetic, movement and
-    multiplies.
+    (42 multiplies): the L3 probes (``kernels.probes``).  ``diag-copy`` and
+    ``diag-moves`` run K1's design point, so they split K1's time
+    (``k1_split``): its memory path (``diag-copy``), its exchanges and
+    barriers (``diag-moves`` - ``diag-copy``) and what its butterflies and
+    twiddle loads add (K1 - ``diag-moves``); ``diag-math`` and ``diag-mul``
+    keep K1's first geometry and price the arithmetic and the multiplies.
 
 L1 and L2 run at the split N2 = 128 (``n1_log = m - 7``), as the Pallas lab.
 Every forward candidate must equal the plain six-step at that split
@@ -27,10 +30,13 @@ Every forward candidate must equal the plain six-step at that split
 same tensor.  A mismatch raises.  Times are device
 times (``cuda_us``: a CUDA graph of ``INNER`` calls between two CUDA
 events, after two warm-up calls, the minimum over ``--reps``), printed per
-transform beside the card's name and power limit.
-With ``--device cpu`` every candidate is its plain version and nothing is
-timed.  Under the NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``) a
-case whose q takes the Solinas product (``modmath.solinas_args``: the
+transform beside the card's name and power limit.  Where K1 and both
+probes are timed, each case ends with K1's split beside ``Tensor.clone()``
+and ``Tensor.flip(-1)`` on the same input (the one PyTorch call that
+computes each probe's function) and each one's bound, the bytes it must
+move over the H100's 3.35 TB/s.  With ``--device cpu`` every candidate is
+its plain version and nothing is timed, the split included.  Under the
+NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``) a case whose q takes the Solinas product (``modmath.solinas_args``: the
 word-64 q at m14, 2^62 - 2^16 + 1, and the word-32 q at m10,
 2^27 - 2^11 + 1) runs every candidate with it, K1 / K2 and L1-L3 in their
 Solinas instantiations, as the JAX lab does under the same switch; each
@@ -55,6 +61,7 @@ CANDIDATES = ("v1", "v2-r2", "v2-r4", "v3", "i1",
               "diag-copy", "diag-math", "diag-moves", "diag-mul")
 CASES = {"u32": ("u32",), "u64": ("u64",), "both": ("u32", "u64")}
 INNER = 20  # launches a timed CUDA graph holds
+HBM_BYTES_PER_S = 3.35e12  # NVIDIA H100 SXM data sheet
 
 
 def case_params(case: str, m: int) -> NttParams:
@@ -106,6 +113,24 @@ def candidates(plan: NttPlan, n1_log: int) -> dict[str, Candidate]:
         "diag-mul": Candidate(probes.diag_mul, probes.plain_mul, "diag_mul", False,
                               "its plain version"),
     }
+
+
+def k1_split(k1: float, copy: float, moves: float) -> dict[str, float]:
+    """K1's time split by the two probes on its design point, all three
+    timed at the same shape: its memory path (diag_copy), its exchanges and
+    barriers (diag_moves - diag_copy), and what its butterflies and twiddle
+    loads add (K1 - diag_moves)."""
+    return {"memory path": copy, "exchanges and barriers": moves - copy,
+            "butterflies and twiddle loads": k1 - moves}
+
+
+def bytes_bound_us(word: int, m: int, batch: int, tw_words: int = 0) -> float:
+    """The least time in us one transform's bytes take at the memory rate:
+    each word read and written once, and tw_words words a twiddle entry of
+    the forward's N-entry table (2 with Shoup constants, 1 under the
+    Solinas product, 0 for the probes), read once a call of batch."""
+    words = 2 * (1 << m) + tw_words * (1 << m) / batch
+    return words * word / 8 / HBM_BYTES_PER_S * 1e6
 
 
 def card(device: torch.device) -> str:
@@ -179,6 +204,20 @@ def run_case(case: str, args, device: torch.device, where: str) -> list[dict]:
                      f"product) on {where}")
         print(line, flush=True)
         records.append(rec)
+    us = {r["name"]: r["us_per_transform"] for r in records}
+    if all(us.get(k) is not None for k in ("v1", "diag-copy", "diag-moves")):
+        split = k1_split(us["v1"], us["diag-copy"], us["diag-moves"])
+        lib = {k: cuda_us(f, x, args.reps, INNER) / args.batch
+               for k, f in (("clone()", lambda v: v.clone()), ("flip(-1)", lambda v: v.flip(-1)))}
+        data = bytes_bound_us(plan.word, p.m, args.batch)
+        print(f"  K1's split, us/transform: K1 {us['v1']:.4f} (bound "
+              f"{bytes_bound_us(plan.word, p.m, args.batch, 1 if sol else 2):.4f}) = "
+              + " + ".join(f"{k} {v:.4f}" for k, v in split.items())
+              + f"; diag-copy against clone() {lib['clone()']:.4f}, diag-moves "
+              f"{us['diag-moves']:.4f} against flip(-1) {lib['flip(-1)']:.4f} (bound of "
+              f"each {data:.4f}) on {where}", flush=True)
+    elif device.type == "cpu":
+        print("  K1's split: not measured (no device times on the CPU)", flush=True)
     return records
 
 

@@ -14,6 +14,7 @@ equality throughout."""
 import functools
 import importlib.util
 import pathlib
+import struct
 
 import numpy as np
 import pytest
@@ -24,7 +25,7 @@ from ntt_tpu.kernels import elems as jel
 from ntt_tpu.params import NttParams as JNttParams
 from ntt_tpu.params import bench_params as jbench_params
 from ntt_tpu.plan import get_plan as jax_get_plan
-from ntt_tpu_torch import lab, sass
+from ntt_tpu_torch import code_cmp, lab, sass
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch.kernels import fused, fused_lab, pointwise, probes, twopass
 from ntt_tpu_torch.params import from_fields
@@ -173,6 +174,42 @@ def test_l1_l2_equal_k1_and_refuse_bad_arguments(width):
         probes.diag_copy(x[..., :48])
 
 
+@pytest.mark.parametrize("word", [32, 64])
+def test_copy_and_moves_on_cpu_at_every_m_k1_serves(word):
+    """diag_copy / diag_moves run K1's design point on the card, so they take
+    the m K1 takes: on the CPU route clone() / flip(-1) at every m from 1 to
+    fused.max_logn(word), and one m beyond refused with K1's message."""
+    dtype = torch.int32 if word == 32 else torch.int64
+    rng = np.random.default_rng(word)
+    for m in range(1, fused.max_logn(word) + 1):
+        a = torch.from_numpy(rng.integers(-2**31, 2**31, size=(3, 1 << m))).to(dtype)
+        assert torch.equal(probes.diag_copy(a), a)
+        assert torch.equal(probes.diag_moves(a), a.flip(-1))
+    beyond = torch.zeros((1, 2 << fused.max_logn(word)), dtype=dtype)
+    for probe in (probes.diag_copy, probes.diag_moves):
+        with pytest.raises(ValueError, match="exceeds one block's shared memory"):
+            probe(beyond)
+
+
+def test_k1_split_and_bounds_of_the_lab(monkeypatch):
+    """K1's split by the probes adds up to K1, and the lab's bounds are
+    chip_smoke's (bytes over the memory rate) per transform."""
+    import chip_smoke
+
+    split = lab.k1_split(k1=290.5, copy=60.25, moves=140.0)
+    assert split == {"memory path": 60.25, "exchanges and barriers": 79.75,
+                     "butterflies and twiddle loads": 150.5}
+    assert sum(split.values()) == 290.5
+    monkeypatch.setattr(chip_smoke, "SOLINAS_MULS", {32: 1, 64: 9})  # read from SASS on the card
+    for word in (32, 64):
+        for kernel, solinas, tw_words in (("diag_copy", False, 0), ("fwd_fused", False, 2),
+                                          ("fwd_fused", True, 1)):
+            ms, by = chip_smoke.bound(*chip_smoke.kernel_work(kernel, 14, 14, 512, word,
+                                                              solinas))
+            assert by == "bytes"
+            assert lab.bytes_bound_us(word, 14, 512, tw_words) * 512 == pytest.approx(ms * 1e3)
+
+
 def test_lab_main_on_cpu_checks_every_candidate_and_launches_nothing(capsys):
     counts = (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES, fused_lab.LAUNCHES,
               probes.LAUNCHES)
@@ -187,6 +224,7 @@ def test_lab_main_on_cpu_checks_every_candidate_and_launches_nothing(capsys):
     assert all(set(c.values()) == {0} for c in counts)
     out = capsys.readouterr().out
     assert out.count("bit-exact") == 2 * len(lab.CANDIDATES)
+    assert out.count("K1's split: not measured") == 2
 
 
 def test_lab_default_device_is_cuda_and_raises_without_a_card():
@@ -214,6 +252,41 @@ def test_sass_count_reads_a_cuobjdump_listing():
     got = sass.count(listing)
     assert got == {"fwd_bfly_u64": {"IMAD.WIDE.U32": 1, "IADD3": 1},
                    "none_u64": {"IMAD.MOV.U32": 1}}
+
+
+def test_code_cmp_reads_text_sections_and_ptxas_reports():
+    """code_cmp's ELF reader finds each .text.<kernel> section of a made-up
+    ELF64 image, and its ptxas reader each entry's registers and spills."""
+    names = b"\0.shstrtab\0.text.k1\0.nv.info\0.text.k2\0"
+    payload = {b".text.k1": b"\x01\x02\x03", b".text.k2": b"\xff" * 5, b".nv.info": b"x"}
+    body, offsets = b"", {}
+    for sec, data in payload.items():
+        offsets[sec] = 0x40 + len(names) + len(body)
+        body += data
+    shoff = 0x40 + len(names) + len(body)
+    image = bytearray(0x40) + names + body
+
+    def header(name, off, size):
+        return struct.pack("<IIQQQQIIQQ", names.index(name + b"\0"), 1, 0, 0, off, size,
+                           0, 0, 1, 0)
+
+    image[0x28:0x30] = struct.pack("<Q", shoff)
+    image[0x3A:0x40] = struct.pack("<HHH", 64, 5, 1)
+    image += bytes(64) + header(b".shstrtab", 0x40, len(names))
+    for sec, data in payload.items():
+        image += header(sec, offsets[sec], len(data))
+    assert code_cmp.text_sections(bytes(image)) == {"k1": b"\x01\x02\x03", "k2": b"\xff" * 5}
+    log = """ptxas info    : Compiling entry function '_Z2k1Pj' for 'sm_90a'
+ptxas info    : Function properties for _Z2k1Pj
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 118 registers, used 1 barriers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z2k2Pj' for 'sm_90a'
+ptxas info    : Used 64 registers, 380 bytes cmem[0]
+"""
+    assert code_cmp.ptxas_reports(log) == {
+        "_Z2k1Pj": "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; "
+                   "Used 118 registers, used 1 barriers, 400 bytes cmem[0]",
+        "_Z2k2Pj": "Used 64 registers, 380 bytes cmem[0]"}
 
 
 def test_chip_smoke_bounds_every_lab_kernel():
