@@ -179,7 +179,14 @@ Phases, each of which raises on failure (nothing is caught):
    m10 batch 8192 at word 32), its plain version under the switch at batch
    32, and its bound for the switched work: the kernel table's
    ``*_solinas_*`` lab rows;
-27. shard kernels vs plain (the dist slice): at the two-pass sizes of phase
+27. the Solinas product alone: ``kernels.pointwise.solinas_mul`` (a check
+   on no transform path, ``SolinasRed::mul`` element-wise) against the
+   plain ``modmath.mul_mod_q2_solinas`` / ``mul_mod32_q2_solinas`` on the
+   same CUDA tensors, bit for bit, at tests/test_torch_solinas.py's q of
+   each form and its operand sets: w < q and t below 4q or 8q with the
+   edges, the whole word with 0 and 2^word - 1, and 2^22 more pairs a q
+   over the whole word;
+28. shard kernels vs plain (the dist slice): at the two-pass sizes of phase
    6 and the dist path's default split for D = 2 and 8 (N1 raised to D),
    K5 (strict, lazy, both output layouts) and K6 (from both layouts) on
    the rows of every shard, [d N1/D, (d + 1) N1/D), and on the four chunks
@@ -188,7 +195,7 @@ Phases, each of which raises on failure (nothing is caught):
    split, against their plain versions on the same CUDA tensors, bit for
    bit; K5 / K6 on one shard under the switch at 2^61 - 2^21 + 1 (m20),
    their Solinas instantiations launched;
-28. the dist slice's main path: with every launch count set to 0,
+29. the dist slice's main path: with every launch count set to 0,
    ``dist_fwd_ntt`` (strict, lazy; n_chunks 1 and 4), ``dist_inv_ntt``
    (n_chunks 1 and 4), ``dist_negacyclic_mul`` (n_chunks 1 and 4),
    ``dist_rec_fwd_ntt`` (strict, lazy) / ``dist_rec_inv_ntt`` and
@@ -200,13 +207,13 @@ Phases, each of which raises on failure (nothing is caught):
    8 shards at both widths (so at row0 != 0), K1-K3 launched; then
    ``dist_fwd_ntt`` m20 through a 1-rank NCCL world (``init_multihost``,
    ``all_to_all_single`` on CUDA tensors) equal to the flat form;
-29. dist times: one call's device time from a CUDA graph, the D = 1, 2 and
+30. dist times: one call's device time from a CUDA graph, the D = 1, 2 and
    8 compositions (forward, inverse, product, rec forward) beside the flat
    'sixstep' at the main path's three sizes, the D = 8 forward's
    all-to-all with its copies on either side, and each shard launch (one
    of 8) beside its bound and its plain version: the kernels line's
    ``*_shard_*`` rows;
-30. times: warm-up, minimum over repetitions, kernel and plain version in
+31. times: warm-up, minimum over repetitions, kernel and plain version in
    turns, beside the card's name and power limit; each kernel's bound, the
    larger of its bytes over the memory rate and its integer multiplies
    over the multiply rate.  Every kernel is timed as the lab times it (a
@@ -319,6 +326,14 @@ SOLINAS_STAGES = (("r2_stage_solinas_u64", 62, 14, 1024, 6),
                   ("r4_stage_solinas_u64", 60, 14, 1024, 6),
                   ("r2_stage_solinas_u32", 27, 10, 1 << 14, 4),
                   ("r4_stage_solinas_u32", 27, 10, 1 << 14, 4))
+# The Solinas product alone (pointwise.solinas_mul): tests/test_torch_solinas.py's
+# q of each form, (q, t bound in units of q of the lazy set or None, word), and
+# SOLINAS_RANDOM_PAIRS more pairs a q over the whole word
+SOLINAS_PRODUCTS = (((1 << 62) - (1 << 16) + 1, 4, 64), ((1 << 61) - (1 << 26) + 1, 8, 64),
+                    ((1 << 60) - (1 << 18) + 1, 8, 64), ((1 << 51) - (1 << 17) + 1, 8, 64),
+                    ((1 << 29) - (1 << 9) + 1, 8, 32), ((1 << 27) - (1 << 11) + 1, 8, 32),
+                    ((1 << 33) - (1 << 15) + 1, None, 64), ((1 << 29) - (1 << 13) + 1, None, 32))
+SOLINAS_RANDOM_PAIRS = 1 << 22
 FAMILY_SMALL_M = (6, 7, 8)  # radix2 and radix4-u32 against pallas-fused, for 'auto'
 FAMILY_SMALL_BATCHES = (128, 1024)
 STAGE_KERNELS = ("r2_stage_u32", "r2_stage_u64", "r4_stage_u32", "r4_stage_u64",
@@ -539,6 +554,27 @@ def schoolbook_at(a, b, k: int, p) -> int:
     acc = sum(int(a[i]) * int(b[k - i]) for i in range(k + 1))
     acc -= sum(int(a[i]) * int(b[n + k - i]) for i in range(k + 1, n))
     return acc % p.q
+
+
+def lazy_operands(np, q: int, t_bound: int, n: int = 4000):
+    """tests/test_torch_solinas.py's operands(): random w < q, t < t_bound,
+    and the extremes of both ranges."""
+    rng = np.random.default_rng(q % 1000)
+    w = rng.integers(0, q, size=n, dtype=np.uint64)
+    t = rng.integers(0, t_bound, size=n, dtype=np.uint64)
+    we = np.array([0, 1, q - 1, q - 2, 1, q - 1], dtype=np.uint64)
+    te = np.array([0, t_bound - 1, t_bound - 1, 1, t_bound - 2, 0], dtype=np.uint64)
+    return np.concatenate([we, w]), np.concatenate([te, t])
+
+
+def full_range_operands(np, q: int, word: int, n: int = 512):
+    """tests/test_torch_solinas.py's full_range_operands(): n pairs uniform
+    over the whole word, and every pair of the edges 0 and 2^word - 1."""
+    rng = np.random.default_rng(q % 997)
+    top = (1 << word) - 1
+    w, t = rng.integers(0, top, size=(2, n), dtype=np.uint64, endpoint=True)
+    edges = np.array([0, top], dtype=np.uint64)
+    return np.concatenate([np.repeat(edges, 2), w]), np.concatenate([np.tile(edges, 2), t])
 
 
 def max_abs_err(np, got, want) -> int:
@@ -1216,7 +1252,7 @@ def main() -> int:
             raise AssertionError(f"{tag}: round trip differs")
 
     # -- the Solinas slice: the NTT_MULMOD=solinas switch -----------------------
-    # Phases 18-26 flip the port's global modmath.USE_SOLINAS (restored in a
+    # Phases 18-27 flip the port's global modmath.USE_SOLINAS (restored in a
     # finally, which re-raises) and run the Solinas instantiations of K1, K2,
     # K4-K10 at q = 2^e - 2^k + 1 (find_solinas_ntt_prime): the headline
     # 2^62 - 2^16 + 1 up to m15, 2^61 - 2^21 + 1 to m20 and 2^61 - 2^26 + 1 to
@@ -1249,8 +1285,8 @@ def main() -> int:
                     radix4.LAUNCHES)
 
     def solinas_slice():
-        """Phases 18-26 (24-25, the demo and the fuzz draws, off the switch);
-        returns the Solinas rows of the kernel table."""
+        """Phases 18-27 (24-25 and 27, the demo, the fuzz draws and the product
+        alone, off the switch); returns the Solinas rows of the kernel table."""
         phase(f"Solinas instantiations vs plain under the switch: K1 / K2 at every m they "
               f"serve (q62, and q27 to m10), K4-K7 at every m from 1 to {TWO_PASS_LAST_M} "
               f"(q61; q27 to m10), K8 and sixstep-rec at m16-m24, the K9 / K10 variants at "
@@ -1714,6 +1750,31 @@ def main() -> int:
                       lambda: cand.plain(small), p, p.m, n1, batch, word,
                       f"m{p.m} batch {batch}", plain_shape=f"m{p.m} batch {LAB_BATCH_CHECK}")
             del x, small
+
+        phase(f"the Solinas product alone (pointwise.solinas_mul, on no transform path) "
+              f"against the plain modmath.mul_mod_q2_solinas / mul_mod32_q2_solinas on the "
+              f"same CUDA tensors: tests/test_torch_solinas.py's operand sets (the lazy range "
+              f"with its edges, the whole word with 0 and 2^word - 1) and "
+              f"{SOLINAS_RANDOM_PAIRS} pairs a q over the whole word (seed {seed})")
+        prng = np.random.default_rng(seed)
+        for q, t_mult, word in SOLINAS_PRODUCTS:
+            form = mm.solinas_form(q) if word == 64 else mm.solinas_form32(q)
+            fold = mm.mul_mod_q2_solinas if word == 64 else mm.mul_mod32_q2_solinas
+            udt, idt = (np.uint64, np.int64) if word == 64 else (np.uint32, np.int32)
+            sets = {"whole word": full_range_operands(np, q, word),
+                    "random": prng.integers(0, (1 << word) - 1, size=(2, SOLINAS_RANDOM_PAIRS),
+                                            dtype=np.uint64, endpoint=True)}
+            if t_mult:
+                sets[f"w < q, t < {t_mult}q"] = lazy_operands(np, q, t_mult * q)
+            for what, (w, t) in sets.items():
+                wd, td = (torch.from_numpy(v.astype(udt).view(idt)).to(dev) for v in (w, t))
+                note(f"solinas_mul_u{word}", pointwise.solinas_mul(wd, td, q),
+                     fold(wd, td, q, *form),
+                     f"q {q:#x} (e, k) {form} {what}, {len(w)} pairs", quiet=True)
+            print(f"  q {q:#x} (e, k) {form}, word {word}: {', '.join(sets)} equal to plain",
+                  flush=True)
+        torch.cuda.synchronize()
+        print(f"  launches of the check: {pointwise.CHECK_LAUNCHES}", flush=True)
         return rows
 
     phase(f"reference-family variants vs plain: every m from each one's least to "
@@ -1936,7 +1997,7 @@ def main() -> int:
 
 
     # -- the dist slice: the distributed six-step on shard-shaped K4-K8 --------
-    # Phases 27-29: the shard launches against their plain versions on the
+    # Phases 28-30: the shard launches against their plain versions on the
     # same CUDA tensors, the dist entry points at full width on a local mesh
     # of DIST_SHARDS shards on this card (and one forward through a 1-rank
     # NCCL world, the all_to_all_single path on CUDA tensors), and the
@@ -1985,7 +2046,7 @@ def main() -> int:
                  f"{tag} K6{' from the transposed layout' if t_in else ''}", quiet)
 
     def dist_slice():
-        """Phases 27-29; returns the shard rows of the kernel table."""
+        """Phases 28-30; returns the shard rows of the kernel table."""
         phase(f"shard kernels vs plain: K5 (strict, lazy, both layouts) and K6 (both layouts) "
               f"at every row0 of D = {' and '.join(map(str, DIST_CHECK_SHARDS))} and on the "
               f"four chunks of the last shard, K4 / K7 on N2/D lanes, K8 on every row shard: "

@@ -92,38 +92,22 @@ NTT_HD T shoup_mul_q2(T w, T w_con, T t, T q) {
   return (T)(w * t - mulhi(w_con, t) * q);
 }
 
-// The two-fold Solinas product for q = 2^e - 2^k + 1, 32 < e < 63, 0 < k,
-// 2k + 3 <= e (ntt_tpu.modmath.mul_mod_q2_solinas, bit for bit): the 128-bit
-// product p, A = p >> e (its low 64 bits), the first fold r = A (2^k - 1) +
-// (p mod 2^e) in 128 bits (up to e + k + 3 of them), A2 = the low 32 bits of
-// r >> e, and the second fold (r mod 2^e) + A2 (2^k - 1) mod 2^64.  No
-// quotient and no final subtract: in [0, 2q) for w < q and t < 8q (t < 4q at
-// e = 62).  Cost on sm_90a: fewer multiplies than Shoup's (9 against 12 in a
-// butterfly's SASS) but the folds' shifts by the run-time e and k and their
-// carries make a butterfly 55 instructions against Shoup's 29 (python -m
-// ntt_tpu_torch.sass), so it is slower wherever the butterflies, and not the
-// Shoup constants' bytes, hold a kernel.
-NTT_HD u64 solinas_mul_q2(u64 w, u64 t, int e, int k) {
-  const u64 lo = w * t, hi = mulhi(w, t);
-  const u64 a = (lo >> e) | (hi << (64 - e));
-  const u64 mask = (1ull << e) - 1;
-  const u64 tl = a << k, th = a >> (64 - k);  // A << k, 128 bits
-  const u64 dl = tl - a, dh = th - (tl < a ? 1 : 0);
-  const u64 rl = dl + (lo & mask), rh = dh + (rl < dl ? 1 : 0);
-  const u64 a2 = (u32)((rl >> e) | (rh << (64 - e)));
-  return (rl & mask) + ((a2 << k) - a2);
+// The 32-bit pieces of the Solinas products.  funnel_r(lo, hi, s) is the low
+// 32 bits of (hi:lo) >> (s mod 32), one SHF on the card; mad_wide(a, b, c) is
+// a*b + c in 64 bits, one IMAD.WIDE.U32, exact wherever the sum stays below
+// 2^64.
+NTT_HD u32 lo32(u64 x) { return (u32)x; }
+NTT_HD u32 hi32(u64 x) { return (u32)(x >> 32); }
+
+NTT_HD u32 funnel_r(u32 lo, u32 hi, u32 s) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_r(lo, hi, s);
+#else
+  return (u32)((((u64)hi << 32) | lo) >> (s & 31));
+#endif
 }
 
-// At word 32 (ntt_tpu.modmath.mul_mod32_q2_solinas, e <= 29): one 64-bit
-// product, A the low 32 bits of p >> e, the first fold in 64 bits, the
-// second mod 2^32.
-NTT_HD u32 solinas_mul_q2(u32 w, u32 t, int e, int k) {
-  const u64 p = (u64)w * t;
-  const u64 a = (u32)(p >> e);
-  const u64 r = (a << k) - a + (p & ((1ull << e) - 1));
-  const u32 a2 = (u32)(r >> e);
-  return ((u32)r & ((1u << e) - 1)) + ((a2 << k) - a2);
-}
+NTT_HD u64 mad_wide(u32 a, u32 b, u64 c) { return (u64)a * b + c; }
 
 // The reduction policies of the single product w*t of a twiddle w and its
 // Shoup constant w_con: mul(w, w_con, t, q) in [0, 2q).  kCon says whether
@@ -137,12 +121,64 @@ struct ShoupRed {
   }
 };
 
+// The two-fold Solinas product for q = 2^e - 2^k + 1, 0 < k, 2k + 3 <= e
+// (ntt_tpu.modmath.mul_mod_q2_solinas at word 64, 32 < e < 63, and
+// mul_mod32_q2_solinas at word 32, e <= 29), bit for bit: the product p,
+// A = the low word of p >> e, the first fold r = A c + (p mod 2^e) with
+// c = 2^k - 1, A2 = the low 32 bits of r >> e, and the second fold
+// (r mod 2^e) + A2 c mod 2^word.  No quotient and no final subtract: in
+// [0, 2q) for w < q and t < 8q (t < 4q at e = 62).  Each step is exact for
+// any w, t below 2^word (A c < 2^94 at word 64, A2 c < 2^62), so the result
+// is JAX's limb code's for every input.
+//
+// The constructor turns (e, k) into what the folds use; the kernels take
+// the policy as a parameter, so these sit in the constant bank.  Bit e lies
+// at bit s = e mod 32 of a 32-bit limb at both words (limb 1 of p at word
+// 64, limb 0 at word 32), so every shift by e is one funnel shift by s, and
+// each (x << k) - x a wide multiply by c that also adds the term beside it.
+// Cost on sm_90a (python -m ntt_tpu_torch.sass): a word-64 butterfly is 29
+// SASS instructions, as many as Shoup's, with 10 multiplies against 12; a
+// word-32 one 13 against Shoup's 9, 3 multiplies each.  The Solinas product
+// reads no Shoup constant, so it saves bytes where a kernel streams its
+// twiddles.
 struct SolinasRed {
   static constexpr bool kCon = false;
-  int e, k;  // q = 2^e - 2^k + 1
-  template <typename T>
-  NTT_HD T mul(T w, T, T t, T) const {
-    return solinas_mul_q2(w, t, e, k);
+  u32 s;     // e mod 32: e - 32 at word 64, e at word 32
+  u32 mask;  // 2^s - 1, the bits below bit e of the limb that holds it
+  u32 c;     // 2^k - 1
+  u32 nq;    // c - 2^s mod 2^32: -q mod 2^32 at word 32
+
+  SolinasRed() = default;
+  NTT_HD SolinasRed(int e, int k)
+      : s((u32)e & 31), mask((1u << (e & 31)) - 1), c((1u << k) - 1),
+        nq(((1u << k) - 1) - (1u << (e & 31))) {}
+
+  // Word 64 on 32-bit limbs: p = w t once, as limbs p0..p3 (ptxas makes the
+  // 128-bit product four wide products and their carries, fewer
+  // instructions than the same sums written on 32-bit limbs); A = (a0, a1),
+  // B = p mod 2^e; r = A c + B as lo32(x) + 2^32 r12 (x = a0 c + B < 2^63,
+  // r12 = a1 c + hi32(x)).
+  NTT_HD u64 mul(u64 w, u64, u64 t, u64) const {
+    const unsigned __int128 p = (unsigned __int128)w * t;
+    const u64 lo = (u64)p, hi = (u64)(p >> 64);
+    const u32 p1 = hi32(lo), p2 = lo32(hi), p3 = hi32(hi);
+    const u32 a0 = funnel_r(p1, p2, s), a1 = funnel_r(p2, p3, s);
+    const u64 x = mad_wide(a0, c, ((u64)(p1 & mask) << 32) | lo32(lo));
+    const u64 r12 = mad_wide(a1, c, hi32(x));
+    const u32 a2 = funnel_r(lo32(r12), hi32(r12), s);
+    return mad_wide(a2, c, ((u64)(lo32(r12) & mask) << 32) | lo32(x));
+  }
+
+  // Word 32: p = w t, A = the low 32 bits of p >> e, r = A c + (p mod 2^e)
+  // < 2^46, then (r mod 2^e) + A2 c mod 2^32, which is r - A2 q mod 2^32
+  // (r mod 2^e = r - (A2 << e) mod 2^32, as e < 32): one multiply-add and
+  // no mask.
+  NTT_HD u32 mul(u32 w, u32, u32 t, u32) const {
+    const u64 p = mad_wide(w, t, 0);
+    const u32 a = funnel_r(lo32(p), hi32(p), s);
+    const u64 r = mad_wide(a, c, lo32(p) & mask);
+    const u32 a2 = funnel_r(lo32(r), hi32(r), s);
+    return lo32(r) + a2 * nq;
   }
 };
 

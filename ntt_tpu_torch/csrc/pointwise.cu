@@ -42,6 +42,32 @@ int launch_mul_mod(const void* a, const void* b, void* out, long long count, con
   return (int)cudaGetLastError();
 }
 
+// A check of modarith.cuh's Solinas product alone, on no transform path:
+// out[i] = red.mul(w[i], t[i]) over count words of any value, so that the
+// card's funnel shifts and wide multiplies are held against the plain
+// products beyond the lazy range the transforms reach.
+template <typename T>
+__global__ void __launch_bounds__(kPointwiseThreads)
+solinas_mul_kernel(const T* __restrict__ w, const T* __restrict__ t, T* __restrict__ out,
+                   long long count, SolinasRed red) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < count;
+       i += stride) {
+    out[i] = red.mul(w[i], (T)0, t[i], (T)0);
+  }
+}
+
+template <typename T>
+int launch_solinas_mul(const void* w, const void* t, void* out, long long count, int e, int k,
+                       void* stream) {
+  if (count < 1) return (int)cudaErrorInvalidValue;
+  long long blocks = (count + kPointwiseThreads - 1) / kPointwiseThreads;
+  if (blocks > 65535LL * 32) blocks = 65535LL * 32;
+  solinas_mul_kernel<T><<<(unsigned)blocks, kPointwiseThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)w, (const T*)t, (T*)out, count, SolinasRed{e, k});
+  return (int)cudaGetLastError();
+}
+
 }  // namespace ntt
 
 // Plain C interface (see ntt_fused.cu).  q < 2^30 for the u32 entry point and
@@ -70,6 +96,17 @@ int ntt_mul_mod_u64(const void* a, const void* b, void* out, long long count,
   }
   k.mu = (1ull << 32) / q;
   return ntt::launch_mul_mod<ntt::u64>(a, b, out, count, k, stream);
+}
+
+// The Solinas product alone at q = 2^e - 2^k + 1 of the word's form.
+int ntt_solinas_mul_u32(const void* w, const void* t, void* out, long long count, int e, int k,
+                        void* stream) {
+  return ntt::launch_solinas_mul<ntt::u32>(w, t, out, count, e, k, stream);
+}
+
+int ntt_solinas_mul_u64(const void* w, const void* t, void* out, long long count, int e, int k,
+                        void* stream) {
+  return ntt::launch_solinas_mul<ntt::u64>(w, t, out, count, e, k, stream);
 }
 
 }  // extern "C"

@@ -38,6 +38,7 @@ _LL = ctypes.c_longlong
 _FUSED_FWD = [_P, _P, _P, _P, _U64, _I, _I, _I, _P]
 _FUSED_INV = [_P, _P, _P, _P, _U64, _U64, _U64, _U64, _U64, _I, _I, _I, _P]
 _MUL_MOD = [_P, _P, _P, _LL, _U64, _P]
+_SOLINAS_MUL = [_P, _P, _P, _LL, _I, _I, _P]
 _FWD_COLS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _P]
 _FWD_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _INV_ROWS = [_P, _P, _P, _P, _U64, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -59,6 +60,8 @@ SIGNATURES = {
     "ntt_inv_fused_u64": _FUSED_INV,
     "ntt_mul_mod_u32": _MUL_MOD,
     "ntt_mul_mod_u64": _MUL_MOD,
+    "ntt_solinas_mul_u32": _SOLINAS_MUL,
+    "ntt_solinas_mul_u64": _SOLINAS_MUL,
     **{f"ntt_{k}_u{w}": sig for w in (32, 64)
        for k, sig in (("fwd_cols", _FWD_COLS), ("fwd_rows", _FWD_ROWS),
                       ("inv_rows", _INV_ROWS), ("inv_cols", _INV_COLS),

@@ -14,7 +14,9 @@ Shoup (``fwd_bfly_u64``) and Solinas (``fwd_bfly_solinas_u64``, the
 NTT_MULMOD=solinas switch), and beside its instructions are its integer
 multiplies: the IMAD / IMUL instructions that multiply (not the IMAD.MOV,
 IMAD.SHL and IMAD.IADD forms, which move, shift and add), one 32-bit
-multiply each.  Needs nvcc and cuobjdump (the CUDA toolkit), not a card.
+multiply each, IMAD.WIDE (32 x 32 -> 64 bits plus a 64-bit addend) and
+IMAD.HI included, so the count is of 32 x 32-bit multiplier passes.  Needs
+nvcc and cuobjdump (the CUDA toolkit), not a card.
 """
 
 from __future__ import annotations

@@ -31,7 +31,8 @@ from ntt_tpu import refmodel as rm
 from ntt_tpu_torch import api, lab, native
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch import params as tparams
-from ntt_tpu_torch.kernels import fused, fused_lab, probes, radix2, radix4, rec, twopass
+from ntt_tpu_torch.kernels import (fused, fused_lab, pointwise, probes, radix2, radix4, rec,
+                                   twopass)
 from ntt_tpu_torch.params import FIXTURES, NttParams, bench_params, find_solinas_ntt_prime
 from ntt_tpu_torch.plan import get_plan
 
@@ -132,8 +133,9 @@ def test_plain_product_equals_jax(jax_products, q, mult, word):
 
 @pytest.fixture(scope="module")
 def host_folds(tmp_path_factory):
-    """csrc/modarith.cuh's two Solinas products, compiled for the host with
-    g++ into a temporary shared library, loaded with ctypes."""
+    """csrc/modarith.cuh's two Solinas products, ``SolinasRed::mul`` on a
+    policy built from (e, k) as the kernels build it, compiled for the host
+    with g++ into a temporary shared library, loaded with ctypes."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.fail("g++ not found: the host check of csrc/modarith.cuh needs it")
@@ -142,8 +144,8 @@ def host_folds(tmp_path_factory):
     src.write_text(
         '#include "modarith.cuh"\n'
         '#define FOLDS(T, NAME) extern "C" void NAME(const T* w, const T* t, T* out, long n, '
-        "int e, int k) { for (long i = 0; i < n; ++i) "
-        "out[i] = ntt::solinas_mul_q2(w[i], t[i], e, k); }\n"
+        "int e, int k) { const ntt::SolinasRed red{e, k}; for (long i = 0; i < n; ++i) "
+        "out[i] = red.mul(w[i], T(0), t[i], T(0)); }\n"
         "FOLDS(ntt::u64, folds64)\nFOLDS(ntt::u32, folds32)\n")
     lib = tmp / "libfolds.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
@@ -168,6 +170,39 @@ def test_device_folds_equal_jax(host_folds, jax_products, q, mult, word):
     fn = host_folds.folds64 if word == 64 else host_folds.folds32
     fn(wa.ctypes.data, ta.ctypes.data, out.ctypes.data, len(wa), e, k)
     np.testing.assert_array_equal(out.astype(np.uint64), want)
+
+
+def full_range_operands(q: int, word: int, n: int = 512):
+    """n pairs w, t uniform over the whole word, and every pair of the edges
+    0 and 2^word - 1."""
+    rng = np.random.default_rng(q % 997)
+    top = (1 << word) - 1
+    w, t = rng.integers(0, top, size=(2, n), dtype=np.uint64, endpoint=True)
+    edges = np.array([0, top], dtype=np.uint64)
+    return np.concatenate([np.repeat(edges, 2), w]), np.concatenate([np.tile(edges, 2), t])
+
+
+# the least e of each form with 2k + 3 == e, where r >> e outgrows 32 bits
+# over the whole word, so A2's truncation shows
+EDGE_FORMS = [((1 << 33) - (1 << 15) + 1, 64), ((1 << 29) - (1 << 13) + 1, 32)]
+
+
+@pytest.mark.parametrize("q,word", [(q, word) for q, _, word in PRODUCT_CASES] + EDGE_FORMS,
+                         ids=lambda c: hex(c) if c > 64 else c)
+def test_device_folds_equal_jax_full_range(host_folds, q, word):
+    """Beyond the lazy range the folds keep JAX's truncations (A to the
+    word, A2 to 32 bits, the result mod 2^word), so modarith.cuh's products
+    and the port's plain ones equal JAX's limb code on any operands."""
+    w, t = full_range_operands(q, word)
+    want = jax_product(w, t, q, word)
+    dt = np.uint64 if word == 64 else np.uint32
+    wa, ta = np.ascontiguousarray(w.astype(dt)), np.ascontiguousarray(t.astype(dt))
+    out = np.zeros_like(wa)
+    e, k = mm.solinas_form(q) if word == 64 else mm.solinas_form32(q)
+    fn = host_folds.folds64 if word == 64 else host_folds.folds32
+    fn(wa.ctypes.data, ta.ctypes.data, out.ctypes.data, len(wa), e, k)
+    np.testing.assert_array_equal(out.astype(np.uint64), want)
+    np.testing.assert_array_equal(port_product(w, t, q, word), want)
 
 
 # ----------------------------------------------------------------------------
@@ -538,6 +573,33 @@ def test_wrappers_launch_the_solinas_instantiation(fake_card, monkeypatch, q, wo
     _drive_every_wrapper(q, m, word)
     assert [n for n, _ in fake_card] == [f"{k}_u{word}" for k in KERNELS]
     assert all(None not in args for _, args in fake_card)
+
+
+@pytest.mark.parametrize("q,mult,word", PRODUCT_CASES, ids=lambda c: hex(c) if c > 64 else c)
+def test_solinas_mul_check_wrapper(host_folds, fake_card, q, mult, word):
+    """pointwise.solinas_mul, the check of the product alone: on CPU tensors
+    its plain version equals modarith.cuh's folds over the whole word, switch
+    off; on the card's route one launch of solinas_mul_u<word> with (e, k),
+    counted in CHECK_LAUNCHES."""
+    w, t = full_range_operands(q, word, n=64)
+    dt, tdt = (np.uint64, np.int64) if word == 64 else (np.uint32, np.int32)
+    wa, ta = np.ascontiguousarray(w.astype(dt)), np.ascontiguousarray(t.astype(dt))
+    want = np.zeros_like(wa)
+    form = mm.solinas_form(q) if word == 64 else mm.solinas_form32(q)
+    (host_folds.folds64 if word == 64 else host_folds.folds32)(
+        wa.ctypes.data, ta.ctypes.data, want.ctypes.data, len(wa), *form)
+    wt, tt = torch.from_numpy(wa.view(tdt)), torch.from_numpy(ta.view(tdt))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(native, "route", lambda x: "cpu")
+        got = pointwise.solinas_mul(wt, tt, q)
+    assert got.dtype == wt.dtype and torch.equal(got, torch.from_numpy(want.view(tdt)))
+    before = dict(pointwise.CHECK_LAUNCHES)
+    pointwise.solinas_mul(wt, tt, q)
+    name = f"solinas_mul_u{word}"
+    assert [n for n, _ in fake_card] == [name] and fake_card[0][1][-3:-1] == form
+    assert pointwise.CHECK_LAUNCHES == {k: v + (k == name) for k, v in before.items()}
+    with pytest.raises(ValueError, match="Solinas form"):
+        pointwise.solinas_mul(wt, tt, FIXTURES[9].q if word == 32 else bench_params(16, 62).q)
 
 
 def test_word56_launches_shoup_under_switch(fake_card, monkeypatch):
