@@ -8,8 +8,9 @@ Phases, each of which raises on failure (nothing is caught):
 1. device: require a CUDA card; print its name and power limit;
 2. build: compile the CUDA kernels of ntt_tpu_torch/csrc with nvcc for
    sm_90a, one nvcc per source, all started together; print the time and
-   ptxas's register report; count a butterfly's SASS instructions and
-   multiplies (``ntt_tpu_torch.sass``), Shoup and Solinas;
+   ptxas's register report, and each lab transform's (L1 / L2
+   instantiations by name) registers and spills; count a butterfly's SASS
+   instructions and multiplies (``ntt_tpu_torch.sass``), Shoup and Solinas;
 3. kernel vs plain: at N = 2^14, batch 128, for a 62-bit q and a q < 2^30,
    run K1 (fwd_fused, strict and lazy), K2 (inv_fused) and K3 (mul_mod) on
    the card and require each output to equal, bit for bit, the plain
@@ -73,7 +74,10 @@ Phases, each of which raises on failure (nothing is caught):
    widths, inputs below 4q: L1 (fwd_fused_v2, two-stage and one-stage
    rounds, strict and lazy), L2 (fwd_fused_v3, strict, lazy, kept
    transposed) and the four L3 probes against their plain versions, bit
-   for bit; diag_copy and diag_moves (on K1's design point) also against
+   for bit; L1 (both groups) and L2 (on K1's design point) also at every m
+   from 1 to fused.max_logn(word), both widths, batch 3, n1_log 1, m // 2,
+   m - 1 and m, strict and lazy, both layouts, and L2 against K1;
+   diag_copy and diag_moves (on K1's design point) also against
    ``clone`` / ``flip(-1)`` at every m from 1 to fused.max_logn(word), both
    widths, batch 1, 3 and 133, and at m14 batch 3 on a tensor that is not
    16-byte aligned;
@@ -155,8 +159,10 @@ Phases, each of which raises on failure (nothing is caught):
    m14, ``NttParams.generate(27, 10)`` = 2^27 - 2^11 + 1 at m10), batch 32,
    inputs below 4q: L1 (both groups; strict, lazy, kept transposed; and at
    n1_log 4), L2 (the same layouts) and ``diag_math`` (m rounds) against
-   their plain versions, bit for bit, L2 against K1; L2 at an N beyond a
-   thread's pairs refused by the Shoup and the Solinas launcher alike;
+   their plain versions, bit for bit, L2 against K1; L1 and L2 at every m
+   each q serves within one block (m1-m14 at word 64, m1-m10 at word 32)
+   as in phase 11; L1 and L2 at an N beyond one block's shared memory
+   refused by the Shoup and the Solinas launchers alike;
 23. the lab path under the switch: with every launch count set to 0,
    ``python -m ntt_tpu_torch.lab --cases both --no-time`` at m14 and at
    m10 (batch 512): every candidate bit-exact; at the switched width (word
@@ -264,6 +270,7 @@ import collections
 import contextlib
 import functools
 import io
+import itertools
 import json
 import os
 import pathlib
@@ -359,6 +366,7 @@ LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
 PROBES = ("diag_copy", "diag_mul", "diag_math", "diag_moves")
 LAB_BATCH_CHECK = 32
 LAB_EVERY_M_BATCHES = (1, 3, 133)  # diag_copy / diag_moves at every m K1 serves
+LAB_EVERY_M_BATCH = 3  # L1 / L2 at every m K1 serves: odd, so a stray block index shows
 SOURCES = {"fwd_fused": CSRC + "ntt_fused.cu", "inv_fused": CSRC + "ntt_fused.cu",
            "mul_mod": CSRC + "pointwise.cu", "fwd_cols": CSRC + "ntt_sixstep.cu",
            "fwd_rows": CSRC + "ntt_sixstep.cu", "inv_rows": CSRC + "ntt_sixstep.cu",
@@ -601,7 +609,8 @@ def main() -> int:
         print(f"ntt_tpu_torch/ not found beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from ntt_tpu_torch import FIXTURES, NttParams, api, bench_params, lab, native, rns, sass
+    from ntt_tpu_torch import (FIXTURES, NttParams, api, bench_params, code_cmp, lab, native,
+                               rns, sass)
     from ntt_tpu_torch import __main__ as cli
     from ntt_tpu_torch import modmath as mm
     from ntt_tpu_torch.kernels import (fused, fused_lab, mxu, pointwise, probes, radix2, radix4,
@@ -625,6 +634,11 @@ def main() -> int:
     for line in res.log.splitlines():
         if any(k in line for k in ("entry function", "registers", "spill", "wgmma")):
             print("  ptxas:", line.strip())
+    lab_reports = {k: v for k, v in code_cmp.ptxas_reports(res.log).items()
+                   if "fwd_v2_kernel" in k or "fwd_v3_kernel" in k}
+    lab_names = code_cmp.demangle(sorted(lab_reports)) if lab_reports else {}
+    for k in sorted(lab_reports, key=lab_names.get):
+        print(f"  lab kernel {lab_names[k]}: {lab_reports[k]}", flush=True)
     print(f"  K11's wgmma body takes dynamic shared memory, not in ptxas's report: "
           + ", ".join(f"{mxu.wgmma_smem_bytes(1 << k)} bytes at K = {1 << k}"
                       for k in range(7, mxu.MAX_K_LOG + 1)), flush=True)
@@ -1124,8 +1138,9 @@ def main() -> int:
     lab_cases = ("u32", "u64")
     lab_params = {c: lab.case_params(c, 14) for c in lab_cases}
     lab_n1 = lab.lab_split(14)
-    phase(f"lab kernels vs plain: m14 batch {LAB_BATCH_CHECK}, n1_log {lab_n1} (and 4); "
-          f"diag_copy / diag_moves at every m, batch {LAB_EVERY_M_BATCHES}")
+    phase(f"lab kernels vs plain: m14 batch {LAB_BATCH_CHECK}, n1_log {lab_n1} (and 4); L1 / L2 "
+          f"at every m, batch {LAB_EVERY_M_BATCH}; diag_copy / diag_moves at every m, batch "
+          f"{LAB_EVERY_M_BATCHES}")
     for case in lab_cases:
         p = lab_params[case]
         plan = get_plan(p)
@@ -1156,6 +1171,43 @@ def main() -> int:
              probes.plain_math(a, plan, p.m), f"{case} L3 diag_math, {p.m} rounds")
         note(f"diag_moves_{word}", probes.diag_moves(a), a.flip(-1), f"{case} L3 diag_moves")
         del a
+    # L1 (both groups) and L2 on K1's design point: every m it serves, the
+    # split edges the wrappers take, strict and lazy, both layouts, batch
+    # LAB_EVERY_M_BATCH, inputs below 4q (from a generator of their own)
+    lab_rng = np.random.default_rng([seed, 11])
+
+    def lab_every_m(params_of, last_m, tag):
+        for m in range(1, last_m + 1):
+            p = params_of(m)
+            plan = get_plan(p)
+            sol = mm.solinas_args(p.q, plan.word)
+            if bool(sol) != mm.USE_SOLINAS:
+                raise AssertionError(f"{tag} q {p.q:#x} m{m}: Solinas product {sol}")
+            suffix = f"_solinas_u{plan.word}" if sol else f"_u{plan.word}"
+            host = lab_rng.integers(0, 4 * p.q, size=(LAB_EVERY_M_BATCH, p.n), dtype=np.uint64)
+            a = mm.from_host(host, p.q, dev)
+            for n1 in sorted({1, m // 2, m - 1, m} - {0}):
+                for strict, keep_t in itertools.product((True, False), (False, True)):
+                    want = fused_lab.plain(a, plan, n1, strict, keep_t)
+                    what = f"{tag} m{m} n1_log {n1} strict {strict} kept transposed {keep_t}"
+                    for group in (1, 2):
+                        note(f"fwd_fused_v2_r{2 * group}{suffix}",
+                             fused_lab.fwd_fused_v2(a, plan, n1, group, strict, keep_t), want,
+                             f"{what} L1 group {group}", quiet=True)
+                    note(f"fwd_fused_v3{suffix}",
+                         fused_lab.fwd_fused_v3(a, plan, n1, strict, keep_t), want,
+                         f"{what} L2", quiet=True)
+            if not torch.equal(fused_lab.fwd_fused_v3(a, plan, m // 2 or 1),
+                               fused.fwd_fused(a, plan)):
+                raise AssertionError(f"{tag} m{m}: L2 differs from K1")
+        print(f"  {tag}: L1 (groups 1 and 2) and L2 equal to the plain six-step at every m "
+              f"from 1 to {last_m}, n1_log 1, m // 2, m - 1 and m, strict and lazy, both "
+              f"layouts, batch {LAB_EVERY_M_BATCH}; L2 equal to K1", flush=True)
+
+    for case in lab_cases:
+        word = 32 if case == "u32" else 64
+        lab_every_m(lambda m, case=case: lab.case_params(case, m), fused.max_logn(word),
+                    f"{case} (Shoup)")
     # diag_copy / diag_moves run K1's design point: every m it serves; one
     # block, a few, and one more than the card's 132 SMs; any word pattern
     # (from a generator of their own, so later phases keep their inputs);
@@ -1583,8 +1635,9 @@ def main() -> int:
         lab_sol = {64: lab.case_params("u64", 14), 32: lab.case_params("u32", 10)}
         phase(f"Solinas lab kernels vs plain under the switch: L1 (both groups) and L2 "
               f"(strict, lazy, kept transposed) and diag_math at m14 batch {LAB_BATCH_CHECK} "
-              f"(q {lab_sol[64].q:#x}) and m10 (q {lab_sol[32].q:#x}); L2's launcher "
-              "refusing an N beyond a thread's pairs under both policies")
+              f"(q {lab_sol[64].q:#x}) and m10 (q {lab_sol[32].q:#x}), L1 / L2 at every m "
+              f"each q serves, batch {LAB_EVERY_M_BATCH}; L1's and L2's launchers refusing an "
+              "N beyond one block's shared memory under both policies")
         with switch():
             for word, p in lab_sol.items():
                 plan = get_plan(p)
@@ -1614,16 +1667,20 @@ def main() -> int:
                     raise AssertionError(f"{tag}: Solinas L2 differs from Solinas K1")
                 note(f"diag_math_solinas_u{word}", probes.diag_math(a, plan, p.m),
                      probes.plain_math(a, plan, p.m), f"{tag} diag_math", quiet=True)
-                # one N beyond what L2's threads hold (and one block's shared
-                # memory): both policies' launchers refuse it before launching
+                # one N beyond one block's shared memory: both policies'
+                # launchers of L1 and L2 refuse it before launching
                 big = fused.max_logn(word) + 1
                 buf = torch.zeros(1 << big, dtype=plan.dtype, device=dev)
                 tabs = plan.device_tables(dev)
-                for name, con, extra in ((f"fwd_fused_v3_u{word}", tabs.w_con.data_ptr(), ()),
-                                         (f"fwd_fused_v3_solinas_u{word}", None, sol)):
+                w_con = tabs.w_con.data_ptr()
+                for name, con, group, extra in (
+                        (f"fwd_fused_v3_u{word}", w_con, (), ()),
+                        (f"fwd_fused_v3_solinas_u{word}", None, (), sol),
+                        (f"fwd_fused_v2_u{word}", w_con, (2,), ()),
+                        (f"fwd_fused_v2_solinas_u{word}", None, (2,), sol)):
                     try:
                         native.launch(name, buf.data_ptr(), buf.data_ptr(), tabs.w.data_ptr(),
-                                      con, p.q, 1, big, big // 2, 1, 0, *extra,
+                                      con, p.q, 1, big, big // 2, *group, 1, 0, *extra,
                                       native.stream(dev))
                     except RuntimeError as err:
                         if "failed to launch" not in str(err):
@@ -1632,9 +1689,14 @@ def main() -> int:
                         raise AssertionError(f"{name} launched at N = 2^{big}")
                 print(f"  {tag}: Solinas {sol} L1 (groups 1 and 2), L2 (strict, lazy, kept "
                       f"transposed; n1_log {n1} and 4) and diag_math ({p.m} rounds) equal to "
-                      f"plain, inputs < 4q; L2 equal to K1; L2 at N = 2^{big} refused by "
-                      "both instantiations", flush=True)
+                      f"plain, inputs < 4q; L2 equal to K1; L1 and L2 at N = 2^{big} refused "
+                      "by both instantiations", flush=True)
                 del a, buf
+            # every m the lab's q serves (2N | q - 1 up to m = k - 1) within one block
+            for word, p in lab_sol.items():
+                last = min(fused.max_logn(word), mm.solinas_args(p.q, word)[1] - 1)
+                lab_every_m(lambda m, q=p.q: NttParams.make(q, m), last,
+                            f"w{word} q {p.q:#x} (Solinas)")
 
         phase("the lab path under the switch: python -m ntt_tpu_torch.lab --cases both "
               "--no-time at m14 and at m10, every launch count set to 0 before it")

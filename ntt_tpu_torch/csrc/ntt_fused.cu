@@ -12,8 +12,8 @@
 // load, one store) plus the twiddle tables, which all blocks share and which
 // stay resident in L2; each butterfly costs a Shoup multiply (two 64x64
 // products at word 64).  Their first design ran log2 N radix-2 stages as
-// passes over shared memory with a barrier after each (the lab's L1 at one
-// stage a round, v2-r2, keeps that structure): at N = 2^14 those passes and
+// passes over shared memory with a barrier after each (the lab's v2-r2 ran
+// so too, before it moved to these rounds): at N = 2^14 those passes and
 // barriers were a third of the time, one scalar load a thread and a separate
 // store pass left device memory at 65 % of its rate, and every butterfly
 // read its own twiddle pair.

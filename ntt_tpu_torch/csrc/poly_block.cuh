@@ -1,12 +1,11 @@
-// The geometry of the lab's kernels L1 / L2 (ntt_lab.cu) and of the L3 probes
-// diag_mul / diag_math (probes.cu): one block per polynomial of N = 2^logn
-// words, min(N/2, 1024) threads (one butterfly each per step, strided beyond
-// 2048 words), the polynomial in dynamic shared memory.  It was K1's
-// geometry until K1 / K2 moved to register rounds (rounds.cuh); its K1
-// structure lives on as L1 at one stage a round (v2-r2).  The probes
-// diag_copy / diag_moves run K1's rounds instead.  The launch helper
-// launch_blocks is shared by every kernel that takes one block per
-// polynomial, K1 / K2 included.
+// The geometry of the L3 probes diag_mul / diag_math (probes.cu): one block
+// per polynomial of N = 2^logn words, min(N/2, 1024) threads (one
+// butterfly each per step, strided beyond 2048 words), the polynomial in
+// dynamic shared memory.  It was K1's geometry until K1 / K2 moved to
+// register rounds (rounds.cuh), and the lab's L1 / L2 (ntt_lab.cu) and the
+// probes diag_copy / diag_moves have since moved to K1's design point too.
+// The launch helper launch_blocks is shared by every kernel that takes one
+// block per polynomial, K1 / K2 included.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -6,31 +6,36 @@ The counterpart of the Pallas lab's transform kernels
 natural order in, bit-reversed out, with the stages grouped otherwise.
 
   * L1 ``fwd_fused_v2`` replaces ``_fwd_kernel_v2`` (pallas_lab.py:127,
-    called through ``fwd_fused_v2`` :166).  The column phase (log2 N1
-    stages) and the row phase (log2 N2) each run the rounds of
-    ``make_rounds`` (:93):
-    ``group=1`` one radix-2 stage a round, ``group=2`` two stages a
-    round (a radix-2 tail round where the phase has an odd stage count).
-    A two-stage round over m groups of four quarters c0..c3 pairs (c0, c2)
-    and (c1, c3) under w[m + g], then (c0, c1) under w[2m + 2g] and
-    (c2, c3) under w[2m + 2g + 1] (``_round_r4`` :67).
+    called through ``fwd_fused_v2`` :166): K1's radix-2 stages in place, in
+    six-step rounds.  The column phase (log2 N1 stages) and the row phase
+    (log2 N2) each run the rounds of ``make_rounds`` (:93): ``group=1`` one
+    stage a round, ``group=2`` two (a one-stage round where the phase has
+    an odd stage count); no round crosses the phase boundary.
   * L2 ``fwd_fused_v3`` replaces ``_fwd_kernel_v3`` (:326, called through
     ``fwd_fused_v3`` :353): the Stockham constant-geometry flow.  Every
-    stage pairs the contiguous halves of the phase's axis and writes the
-    results interleaved; the column twiddle of stage s for pair i is
+    stage pairs the two halves of the phase's axis and writes the results
+    interleaved; the column twiddle of stage s for pair i is
     w[2^s + (i mod 2^s)], the row twiddle of row-stage s for pair i in
     column c is w[2^s N1 + c 2^s + (i mod 2^s)] (``stockham_col_stack`` /
     ``stockham_row_stack`` :277-298).  The kernel computes those indices
     into the plan's flat tables; no pre-broadcast stack is built.
 
-Every coefficient meets the butterflies of the flat radix-2 transform with
-the same twiddles, so L1 and L2 give K1's bits, lazy representatives included,
-at any split; ``n1_log`` sets the round structure (where a phase ends) and
-the ``keep_transposed`` layout, (N2, N1).  Their plain version is
-therefore the plain six-step at the same split, ``plain`` below
-(``sixstep.fwd_sixstep``).  The Pallas lab's ``use_scratch`` (its VMEM
-ping-pong pair) and ``tile_b`` change no bit and have no counterpart; the
-design is in ``csrc/ntt_lab.cu``.
+Both kernels run at K1's design point (``csrc/rounds.cuh``: 16 words a
+thread in registers, at most 512 threads, the padded exchange buffer
+between rounds, a coalesced first load and copy-out), so K1, L1 and L2
+differ only in where their rounds fall: K1 runs rounds of four stages,
+L1 rounds of ``group`` stages that stop at the N1 | N2 boundary, L2 rounds
+of up to four Stockham stages that read the same 16 positions of the
+phase's axis every round.  Every coefficient meets the butterflies of the
+flat radix-2 transform with the same twiddles, so L1 and L2 give K1's
+bits, lazy representatives included, at any split; ``n1_log`` sets the
+round structure (where a phase ends) and the ``keep_transposed`` layout,
+(N2, N1).  Their plain version is therefore the plain six-step at the
+same split, ``plain`` below (``sixstep.fwd_sixstep``).  The Pallas lab's
+``use_scratch`` (its VMEM ping-pong pair) and ``tile_b`` change no bit and
+have no counterpart; the design is in ``csrc/ntt_lab.cu``.  Both wrappers
+refuse, on the card, an N beyond one block's shared memory
+(``fused.max_logn``), as K1's do.
 
 A wrapper runs the plain version for a tensor on the CPU and the kernel
 for a tensor on a CUDA device; it never falls back from one to the other.

@@ -11,9 +11,11 @@ it runs on one batch of random polynomials below q:
 
   * ``v1``: K1 (``kernels.fused.fwd_fused``);
   * ``v2-r2`` / ``v2-r4``: L1 in rounds of one / two stages
-    (``kernels.fused_lab.fwd_fused_v2``); v2-r2 is K1's first design, one
-    radix-2 stage a pass over shared memory;
-  * ``v3``: L2, the Stockham flow (``fused_lab.fwd_fused_v3``);
+    (``kernels.fused_lab.fwd_fused_v2``): K1's in-place rounds, one
+    exchange through shared memory a round, stopping at the N1 | N2
+    boundary;
+  * ``v3``: L2, the Stockham flow (``fused_lab.fwd_fused_v3``) in rounds
+    of up to four stages that read the same positions every round;
   * ``i1``: K2 (``kernels.fused.inv_fused``);
   * ``diag-copy``, ``diag-math`` (m rounds), ``diag-moves``, ``diag-mul``
     (42 multiplies): the L3 probes (``kernels.probes``).  ``diag-copy`` and
@@ -23,7 +25,11 @@ it runs on one batch of random polynomials below q:
     twiddle loads add (K1 - ``diag-moves``); ``diag-math`` and ``diag-mul``
     keep K1's first geometry and price the arithmetic and the multiplies.
 
-L1 and L2 run at the split N2 = 128 (``n1_log = m - 7``), as the Pallas lab.
+K1, L1 and L2 run at one design point (K1's: 16 words a thread, at most
+512 threads, the padded exchange buffer), so their times differ by their
+algorithms alone; K1 (3 exchanges at m14), L1 in rounds of two (7) and
+of one stage (13) give the price of one exchange.  L1 and L2 run at the
+split N2 = 128 (``n1_log = m - 7``), as the Pallas lab.
 Every forward candidate must equal the plain six-step at that split
 (``kernels.fused_lab.plain``) and v1's output, i1 the plain inverse six-step
 (``fused_lab.plain_inv``); every probe must equal its plain version on the

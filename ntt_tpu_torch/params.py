@@ -4,7 +4,7 @@ The port's own copy of what it uses from ``ntt_tpu/params.py``: the
 frozen ``NttParams`` (q, m, w, w_inv, n_inv) with the same field names,
 the 19 reference fixtures, the deterministic prime and root generators
 behind ``NttParams.generate``, ``bench_params`` and the RNS towers
-(``find_ntt_primes``), and ``from_fields``,
+(``find_ntt_primes``), the reference's ``WORD_SIZE``, and ``from_fields``,
 the one way in for a parameter object of another package.  Host-side
 Python with exact big-int arithmetic; nothing here runs on a device.
 """
@@ -15,6 +15,8 @@ import dataclasses
 import functools
 
 from ntt_tpu_torch import twiddles
+
+WORD_SIZE = 64  # the reference's scalar word size (``ntt_tpu.params.WORD_SIZE``)
 
 
 def is_probable_prime(n: int) -> bool:

@@ -12,7 +12,8 @@ values are those of the JAX package's builders, computed exactly in
 vectorised uint64 arithmetic (the powers as a (sqrt N x sqrt N) grid of
 Shoup products, the Shoup constants in two 32-bit quotient digits), so a
 table of N = 2^24 takes seconds, not the minute of a Python loop.  Every
-table is numpy uint64.
+table is numpy uint64.  ``bit_rev_idx`` is the JAX package's scalar bit
+reversal, ``bit_rev_perm`` its permutation of N indices.
 """
 
 from __future__ import annotations
@@ -21,6 +22,15 @@ import concurrent.futures
 import os
 
 import numpy as np
+
+
+def bit_rev_idx(idx: int, width: int) -> int:
+    """Reverse the low `width` bits of idx (``ntt_tpu.twiddles.bit_rev_idx``)."""
+    r = 0
+    for _ in range(width):
+        r = (r << 1) | (idx & 1)
+        idx >>= 1
+    return r
 
 
 def bit_rev_perm(n: int) -> np.ndarray:

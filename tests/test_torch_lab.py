@@ -299,3 +299,11 @@ def test_chip_smoke_bounds_every_lab_kernel():
         nbytes, _ = chip_smoke.kernel_work(base, 14, 7, 512, 64)
         assert nbytes > 0
         assert base in chip_smoke.SOURCES and base in chip_smoke.REPLACES
+
+
+def test_lab_times_needs_a_card(monkeypatch, capsys):
+    from ntt_tpu_torch import lab_times
+
+    monkeypatch.setattr("sys.argv", ["lab_times.py", "--tag", "cpu"])
+    assert lab_times.main() == 2
+    assert "torch.cuda.is_available() is false" in capsys.readouterr().err

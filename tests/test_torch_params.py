@@ -31,6 +31,17 @@ def test_fixture_equals_jax(i):
     assert params.FIXTURES[i].n == jparams.FIXTURES[i].n
 
 
+@pytest.mark.parametrize("width", range(11))
+def test_bit_rev_idx_equals_jax(width):
+    got = [twiddles.bit_rev_idx(i, width) for i in range(1 << width)]
+    assert got == [jtw.bit_rev_idx(i, width) for i in range(1 << width)]
+    assert got == twiddles.bit_rev_perm(1 << width).tolist()
+
+
+def test_word_size_equals_jax():
+    assert params.WORD_SIZE == jparams.WORD_SIZE == 64
+
+
 @pytest.mark.parametrize("m", [14, 16, 20])
 def test_bench_params_equal_jax(m):
     p = params.bench_params(m, 62)
