@@ -9,8 +9,11 @@ Phases, each of which raises on failure (nothing is caught):
 2. build: compile the CUDA kernels of ntt_tpu_torch/csrc with nvcc for
    sm_90a, one nvcc per source, all started together; print the time and
    ptxas's register report, and each lab transform's (L1 / L2
-   instantiations by name) registers and spills; count a butterfly's SASS
-   instructions and multiplies (``ntt_tpu_torch.sass``), Shoup and Solinas;
+   instantiations and L3 probes by name) registers and spills; count a
+   butterfly's SASS instructions and multiplies (``ntt_tpu_torch.sass``),
+   Shoup and Solinas, and the innermost loops of diag_mul (one multiply a
+   32-bit half of a group a step, at every group size: no chain folded)
+   and diag_math (its 8 butterflies a round);
 3. kernel vs plain: at N = 2^14, batch 128, for a 62-bit q and a q < 2^30,
    run K1 (fwd_fused, strict and lazy), K2 (inv_fused) and K3 (mul_mod) on
    the card and require each output to equal, bit for bit, the plain
@@ -76,10 +79,12 @@ Phases, each of which raises on failure (nothing is caught):
    transposed) and the four L3 probes against their plain versions, bit
    for bit; L1 (both groups) and L2 (on K1's design point) also at every m
    from 1 to fused.max_logn(word), both widths, batch 3, n1_log 1, m // 2,
-   m - 1 and m, strict and lazy, both layouts, and L2 against K1;
-   diag_copy and diag_moves (on K1's design point) also against
-   ``clone`` / ``flip(-1)`` at every m from 1 to fused.max_logn(word), both
-   widths, batch 1, 3 and 133, and at m14 batch 3 on a tensor that is not
+   m - 1 and m, strict and lazy, both layouts, and L2 against K1, and
+   diag_math against its plain version at m rounds and equal to its input
+   at 0; diag_copy, diag_moves and diag_mul (all four probes run K1's
+   design point) also against ``clone`` / ``flip(-1)`` / ``plain_mul`` at
+   every m from 1 to fused.max_logn(word), both widths, batch 1, 3 and
+   133, any word pattern, and at m14 batch 3 on a tensor that is not
    16-byte aligned;
 12. the lab path: with every launch count set to 0,
    ``python -m ntt_tpu_torch.lab --cases both --no-time`` (N = 2^14, batch
@@ -158,10 +163,10 @@ Phases, each of which raises on failure (nothing is caught):
    takes the Solinas product (``bench_params(14, 62)`` = 2^62 - 2^16 + 1 at
    m14, ``NttParams.generate(27, 10)`` = 2^27 - 2^11 + 1 at m10), batch 32,
    inputs below 4q: L1 (both groups; strict, lazy, kept transposed; and at
-   n1_log 4), L2 (the same layouts) and ``diag_math`` (m rounds) against
-   their plain versions, bit for bit, L2 against K1; L1 and L2 at every m
-   each q serves within one block (m1-m14 at word 64, m1-m10 at word 32)
-   as in phase 11; L1 and L2 at an N beyond one block's shared memory
+   n1_log 4), L2 (the same layouts) and ``diag_math`` (m rounds; 0 rounds
+   equal to its input) against their plain versions, bit for bit, L2
+   against K1; L1, L2 and ``diag_math`` at every m each q serves within
+   one block (m1-m14 at word 64, m1-m10 at word 32) as in phase 11; L1 and L2 at an N beyond one block's shared memory
    refused by the Shoup and the Solinas launchers alike;
 23. the lab path under the switch: with every launch count set to 0,
    ``python -m ntt_tpu_torch.lab --cases both --no-time`` at m14 and at
@@ -238,9 +243,14 @@ Phases, each of which raises on failure (nothing is caught):
    products; the lab kernels and K1 at the lab's shape, the lab
    kernels' plain versions at batch 32, and diag_copy's and diag_moves's
    one-call PyTorch equivalents (``clone``, ``flip``) as the lab kernels
-   are timed; K1's split at that shape by the two probes on its design
-   point (``lab.k1_split``: diag_copy, diag_moves - diag_copy, K1 -
-   diag_moves), each part beside ``clone`` / ``flip`` and its bound;
+   are timed; K1's split at that shape by three probes on its design
+   point (``lab.k1_split``: diag_copy, diag_math - diag_copy, diag_moves -
+   diag_copy, the rest of K1), each part beside ``clone`` / ``flip`` and
+   its bound; the marginal rates of the arithmetic probes
+   (``lab.marginal_rates``: diag_mul at 42 and 168 steps, diag_math at m
+   and 2m rounds, each also checked against its plain version): 32-bit
+   multiplies a second against the bound's, butterflies a second and
+   their SASS instructions a second against the card's issue rate;
    each reference-family variant's forward and product at m14
    batch 1024 beside K1's and 'auto''s (CUDA graph), K9 / K10 a stage
    beside their bounds (plain versions at batch 32), and 'radix2' /
@@ -365,7 +375,7 @@ LAB = "tools/pallas_lab.py:"
 LAB_TRANSFORMS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
 PROBES = ("diag_copy", "diag_mul", "diag_math", "diag_moves")
 LAB_BATCH_CHECK = 32
-LAB_EVERY_M_BATCHES = (1, 3, 133)  # diag_copy / diag_moves at every m K1 serves
+LAB_EVERY_M_BATCHES = (1, 3, 133)  # diag_copy / diag_moves / diag_mul at every m K1 serves
 LAB_EVERY_M_BATCH = 3  # L1 / L2 at every m K1 serves: odd, so a stray block index shows
 SOURCES = {"fwd_fused": CSRC + "ntt_fused.cu", "inv_fused": CSRC + "ntt_fused.cu",
            "mul_mod": CSRC + "pointwise.cu", "fwd_cols": CSRC + "ntt_sixstep.cu",
@@ -396,6 +406,9 @@ REPLACES = {"fwd_fused": "ntt_tpu/kernels/pallas_fused.py:230",
 HBM_BYTES_PER_S = 3.35e12
 INT_MULS_PER_S = 67e12 / 4
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor-core operations (the same data sheet)
+# warp instructions a second the H100 SXM can issue: one a clock on each of
+# the 4 schedulers of its 132 SMs at the 1.98 GHz maximum SM clock
+WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
 # 32-bit multiplies of one Shoup product (hi(w_con*t), w*t, Q*q): one each at
 # word 32; at word 64 a 64x64 high half takes four partial products and each
 # low half three.  mul_mod: the full product, then folds (pointwise.cu).
@@ -635,7 +648,7 @@ def main() -> int:
         if any(k in line for k in ("entry function", "registers", "spill", "wgmma")):
             print("  ptxas:", line.strip())
     lab_reports = {k: v for k, v in code_cmp.ptxas_reports(res.log).items()
-                   if "fwd_v2_kernel" in k or "fwd_v3_kernel" in k}
+                   if any(n in k for n in ("fwd_v2_kernel", "fwd_v3_kernel", "diag_"))}
     lab_names = code_cmp.demangle(sorted(lab_reports)) if lab_reports else {}
     for k in sorted(lab_reports, key=lab_names.get):
         print(f"  lab kernel {lab_names[k]}: {lab_reports[k]}", flush=True)
@@ -651,6 +664,21 @@ def main() -> int:
         for k, v in bfly_sass.items()), flush=True)
     print(f"  32-bit multiplies of one single product: Solinas {SOLINAS_MULS} (SASS), Shoup "
           f"{SHOUP_MULS} (by hand)", flush=True)
+    # diag_mul's step loop: one multiply a 32-bit half of the group, at every
+    # group size (2-16 words), so no chain folded; diag_math's round loop:
+    # its 8 butterflies
+    probe_sass = sass.probe_loops()
+    for w in (32, 64):
+        halves = 16 * w // 32
+        got = probe_sass[f"diag_mul_u{w}"]
+        if got["multiplies"] != halves or set(got["loops"]) != {halves >> s for s in range(4)}:
+            raise AssertionError(f"diag_mul_u{w}: step loops of {got['loops']} multiplies, "
+                                 f"want one a half of 2-16 words ({halves} at 16)")
+    print("  SASS of the probes' innermost loops at 16 words a thread: " + "; ".join(
+        f"{k} {v['instructions']} instructions, {v['multiplies']} multiplies"
+        + (f" ({v['instructions'] / 8:.1f} a butterfly)" if "math" in k else
+           f" a step of the {N_MULTS}")
+        for k, v in probe_sass.items()), flush=True)
 
     params = {"q62": bench_params(14, 62), "q29": FIXTURES[9]}
     rng = np.random.default_rng(args.seed)
@@ -1139,8 +1167,8 @@ def main() -> int:
     lab_params = {c: lab.case_params(c, 14) for c in lab_cases}
     lab_n1 = lab.lab_split(14)
     phase(f"lab kernels vs plain: m14 batch {LAB_BATCH_CHECK}, n1_log {lab_n1} (and 4); L1 / L2 "
-          f"at every m, batch {LAB_EVERY_M_BATCH}; diag_copy / diag_moves at every m, batch "
-          f"{LAB_EVERY_M_BATCHES}")
+          f"and diag_math at every m, batch {LAB_EVERY_M_BATCH}; diag_copy / diag_moves / "
+          f"diag_mul at every m, batch {LAB_EVERY_M_BATCHES}")
     for case in lab_cases:
         p = lab_params[case]
         plan = get_plan(p)
@@ -1169,6 +1197,8 @@ def main() -> int:
         note(f"diag_mul_{word}", probes.diag_mul(a), probes.plain_mul(a), f"{case} L3 diag_mul")
         note(f"diag_math_{word}", probes.diag_math(a, plan, p.m),
              probes.plain_math(a, plan, p.m), f"{case} L3 diag_math, {p.m} rounds")
+        note(f"diag_math_{word}", probes.diag_math(a, plan, 0), a,
+             f"{case} L3 diag_math, 0 rounds: its input")
         note(f"diag_moves_{word}", probes.diag_moves(a), a.flip(-1), f"{case} L3 diag_moves")
         del a
     # L1 (both groups) and L2 on K1's design point: every m it serves, the
@@ -1200,16 +1230,22 @@ def main() -> int:
             if not torch.equal(fused_lab.fwd_fused_v3(a, plan, m // 2 or 1),
                                fused.fwd_fused(a, plan)):
                 raise AssertionError(f"{tag} m{m}: L2 differs from K1")
+            note(f"diag_math{suffix}", probes.diag_math(a, plan, m),
+                 probes.plain_math(a, plan, m), f"{tag} m{m} diag_math, {m} rounds", quiet=True)
+            note(f"diag_math{suffix}", probes.diag_math(a, plan, 0), a,
+                 f"{tag} m{m} diag_math, 0 rounds: its input", quiet=True)
         print(f"  {tag}: L1 (groups 1 and 2) and L2 equal to the plain six-step at every m "
               f"from 1 to {last_m}, n1_log 1, m // 2, m - 1 and m, strict and lazy, both "
-              f"layouts, batch {LAB_EVERY_M_BATCH}; L2 equal to K1", flush=True)
+              f"layouts, batch {LAB_EVERY_M_BATCH}; L2 equal to K1; diag_math equal to plain "
+              f"at m rounds and to its input at 0", flush=True)
 
     for case in lab_cases:
         word = 32 if case == "u32" else 64
         lab_every_m(lambda m, case=case: lab.case_params(case, m), fused.max_logn(word),
                     f"{case} (Shoup)")
-    # diag_copy / diag_moves run K1's design point: every m it serves; one
-    # block, a few, and one more than the card's 132 SMs; any word pattern
+    # diag_copy / diag_moves / diag_mul run K1's design point: every m it
+    # serves; one block, a few, and one more than the card's 132 SMs; any word
+    # pattern
     # (from a generator of their own, so later phases keep their inputs);
     # and a tensor 4 / 8 bytes off 16-byte alignment
     probe_rng = np.random.default_rng([seed, 14])
@@ -1223,6 +1259,8 @@ def main() -> int:
                      quiet=True)
                 note(f"diag_moves_u{word}", probes.diag_moves(a), a.flip(-1),
                      f"{what} diag_moves", quiet=True)
+                note(f"diag_mul_u{word}", probes.diag_mul(a), probes.plain_mul(a),
+                     f"{what} diag_mul", quiet=True)
         a = torch.from_numpy(probe_rng.integers(-2**63, 2**63 - 1, size=3 * 2**14 + 1,
                                           dtype=np.int64)).to(dev, dtype)[1:].view(3, 2**14)
         assert a.is_contiguous() and a.data_ptr() % 16 != 0
@@ -1230,8 +1268,10 @@ def main() -> int:
              f"w{word} m14 batch 3 unaligned diag_copy", quiet=True)
         note(f"diag_moves_u{word}", probes.diag_moves(a), a.flip(-1),
              f"w{word} m14 batch 3 unaligned diag_moves", quiet=True)
-    print(f"  diag_copy / diag_moves equal to clone() / flip(-1) at every m from 1 to "
-          f"{fused.max_logn(32)} / {fused.max_logn(64)} (w32 / w64), batch "
+        note(f"diag_mul_u{word}", probes.diag_mul(a), probes.plain_mul(a),
+             f"w{word} m14 batch 3 unaligned diag_mul", quiet=True)
+    print(f"  diag_copy / diag_moves / diag_mul equal to clone() / flip(-1) / plain_mul at "
+          f"every m from 1 to {fused.max_logn(32)} / {fused.max_logn(64)} (w32 / w64), batch "
           f"{', '.join(map(str, LAB_EVERY_M_BATCHES))}, and at m14 batch 3 unaligned",
           flush=True)
 
@@ -1635,8 +1675,8 @@ def main() -> int:
         lab_sol = {64: lab.case_params("u64", 14), 32: lab.case_params("u32", 10)}
         phase(f"Solinas lab kernels vs plain under the switch: L1 (both groups) and L2 "
               f"(strict, lazy, kept transposed) and diag_math at m14 batch {LAB_BATCH_CHECK} "
-              f"(q {lab_sol[64].q:#x}) and m10 (q {lab_sol[32].q:#x}), L1 / L2 at every m "
-              f"each q serves, batch {LAB_EVERY_M_BATCH}; L1's and L2's launchers refusing an "
+              f"(q {lab_sol[64].q:#x}) and m10 (q {lab_sol[32].q:#x}), L1 / L2 / diag_math at "
+              f"every m each q serves, batch {LAB_EVERY_M_BATCH}; L1's and L2's launchers refusing an "
               "N beyond one block's shared memory under both policies")
         with switch():
             for word, p in lab_sol.items():
@@ -1667,6 +1707,8 @@ def main() -> int:
                     raise AssertionError(f"{tag}: Solinas L2 differs from Solinas K1")
                 note(f"diag_math_solinas_u{word}", probes.diag_math(a, plan, p.m),
                      probes.plain_math(a, plan, p.m), f"{tag} diag_math", quiet=True)
+                note(f"diag_math_solinas_u{word}", probes.diag_math(a, plan, 0), a,
+                     f"{tag} diag_math at 0 rounds: its input", quiet=True)
                 # one N beyond one block's shared memory: both policies'
                 # launchers of L1 and L2 refuse it before launching
                 big = fused.max_logn(word) + 1
@@ -1688,8 +1730,8 @@ def main() -> int:
                     else:
                         raise AssertionError(f"{name} launched at N = 2^{big}")
                 print(f"  {tag}: Solinas {sol} L1 (groups 1 and 2), L2 (strict, lazy, kept "
-                      f"transposed; n1_log {n1} and 4) and diag_math ({p.m} rounds) equal to "
-                      f"plain, inputs < 4q; L2 equal to K1; L1 and L2 at N = 2^{big} refused "
+                      f"transposed; n1_log {n1} and 4) and diag_math ({p.m} rounds; 0 rounds: "
+                      f"its input) equal to plain, inputs < 4q; L2 equal to K1; L1 and L2 at N = 2^{big} refused "
                       "by both instantiations", flush=True)
                 del a, buf
             # every m the lab's q serves (2N | q - 1 up to m = k - 1) within one block
@@ -2755,7 +2797,8 @@ def main() -> int:
               + ", ".join(f"{k} {v * 1e3:.1f} us" for k, v in parts.items()), flush=True)
         k1_again = lab.cuda_us(cands["v1"].fn, x, 5, lab.INNER) / 1e3
         k1_best = min(k1_ms, k1_again)
-        split = lab.k1_split(k1_best, parts["diag-copy"], parts["diag-moves"])
+        split = lab.k1_split(k1_best, parts["diag-copy"], parts["diag-moves"],
+                             parts["diag-math"])
         k1_bound = bound(*kernel_work("fwd_fused", p.m, p.m, lab_batch, plan.word))[0]
         data_bound = bound(*kernel_work("diag_copy", p.m, p.m, lab_batch, plan.word))[0]
         print(f"  {case} K1's split at m14 batch {lab_batch} ({smi}): K1 {k1_best * 1e3:.1f} us "
@@ -2766,6 +2809,30 @@ def main() -> int:
               f"{lib_times['diag-copy'] * 1e3:.1f}, diag_moves {parts['diag-moves'] * 1e3:.1f} "
               f"against flip(-1) {lib_times['diag-moves'] * 1e3:.1f}; bound of each "
               f"{data_bound * 1e3:.1f} us", flush=True)
+        # one more step of the arithmetic probes, free of their memory path:
+        # the marginal multiply rate (against the bound's) and butterfly rate
+        note(f"diag_mul_{word}", probes.diag_mul(small, 4 * N_MULTS),
+             probes.plain_mul(small, 4 * N_MULTS), f"{case} diag_mul, {4 * N_MULTS} steps",
+             quiet=True)
+        note(f"diag_math_{word}", probes.diag_math(small, plan, 2 * p.m),
+             probes.plain_math(small, plan, 2 * p.m), f"{case} diag_math, {2 * p.m} rounds",
+             quiet=True)
+        rates = lab.marginal_rates(plan, x)
+        clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                                 "--format=csv,noheader"], capture_output=True, text=True,
+                                timeout=60).stdout.strip()
+        per_bfly = probe_sass[f"diag_math_u{plan.word}"]["instructions"] / 8
+        warp_ips = rates["bfly_per_s"] * per_bfly / 32
+        print(f"  {case} marginal rates at m14 batch {lab_batch} ({smi}; SM clock now, max: "
+              f"{clocks}): diag_mul {N_MULTS} / {4 * N_MULTS} steps "
+              f"{rates['mul_us'][0]:.1f} / {rates['mul_us'][1]:.1f} us, "
+              f"{rates['mul_per_s']:.4g} 32-bit multiplies/s "
+              f"({rates['mul_per_s'] / INT_MULS_PER_S:.0%} of the bound's {INT_MULS_PER_S:.4g}); "
+              f"diag_math {p.m} / {2 * p.m} rounds {rates['math_us'][0]:.1f} / "
+              f"{rates['math_us'][1]:.1f} us, {rates['bfly_per_s']:.4g} butterflies/s, "
+              f"{per_bfly:.1f} SASS instructions each in its loop: {warp_ips:.4g} warp "
+              f"instructions/s ({warp_ips / WARP_ISSUE_PER_S:.0%} of 4 a clock on each SM at "
+              f"1.98 GHz)", flush=True)
         del x, small
     table.extend(sol_rows)
     table.extend(dist_rows)

@@ -1,34 +1,52 @@
 // Cost probes L3: four kernels that each run one part of K1's work
 // (ntt_fused.cu), at word 32 and word 64, so that their times split K1's
 // time on the card.  They replace the Pallas lab's diagnostic kernels
-// (tools/pallas_lab.py, all through _diag_call :419):
+// (tools/pallas_lab.py, all through _diag_call :419).  All four run K1's
+// design point (rounds.cuh: Fused<T>'s 512 threads at most, one thread a
+// group of 16 words, launch_fused) and take the first round's coalesced
+// load: group (0, lo) of the round from s0 = 0 holds the words lo + i N/16
+// (lo < N/16), so registers i and i + 8 lie N/2 apart.
 //
 //   diag_copy_kernel   diag_copy :444.  K1's memory path alone, at K1's
-//                      design point (rounds.cuh: Fused<T>'s threads and
-//                      minimum blocks an SM, exchange_bytes<T>(logn) of
-//                      padded shared memory, so K1's occupancy): its first
-//                      round's coalesced load into registers at stride
-//                      N/16, the write of those registers into the
-//                      exchange buffer, one barrier, and copy_out's
-//                      coalesced 16-byte store.  No rounds, no exchanges:
-//                      the floor K1's memory path can reach at its
-//                      occupancy (at word 64 and N = 2^14 the 136 KB buffer
-//                      allows one block an SM).
-//   diag_mul_kernel    diag_mul :402.  Each thread takes its words from shared
-//                      memory into registers and runs n_mults chained
-//                      x * c + 1 (mod 2^32) on each 32-bit half, then stores:
-//                      32-bit multiply throughput.  Each step is one
-//                      mad.lo.u32 in inline PTX, with c a kernel argument, so
-//                      the compiler cannot fold the chain into one multiply.
-//   diag_math_kernel   diag_math :455.  Each thread takes pairs (i, i + N/2)
-//                      into registers and runs n_rounds Harvey butterflies
-//                      under w[1] on them: the butterfly arithmetic with no
-//                      shared-memory traffic and no barriers.  Its product
-//                      is a reduction policy of modarith.cuh: ShoupRed, or
-//                      SolinasRed under the NTT_MULMOD=solinas switch
-//                      (ntt_diag_math_solinas_u*, (e, k) before the
-//                      stream, no w_con read), as the Pallas probe's
-//                      ops.fwd_bfly takes the Solinas product there.
+//                      occupancy (exchange_bytes<T>(logn) of padded shared
+//                      memory and Fused<T>'s minimum blocks an SM): the
+//                      first round's load into registers at stride N/16,
+//                      the write of those registers into the exchange
+//                      buffer, one barrier, and copy_out's coalesced
+//                      16-byte store.  No rounds, no exchanges: the floor
+//                      K1's memory path can reach at its occupancy (at
+//                      word 64 and N = 2^14 the 136 KB buffer allows one
+//                      block an SM).
+//   diag_math_kernel   diag_math :455.  diag_copy's path with n_rounds
+//                      Harvey butterflies of each register pair (i, i + 8),
+//                      which is (j, j + N/2), under w[1] inserted between
+//                      the load and the write into the exchange buffer:
+//                      K1's butterfly count (m rounds of N/2) on K1's memory
+//                      path, with no twiddle load beyond w[1] (and its Shoup
+//                      constant, read once a thread) and no exchange.  The
+//                      round loop is not unrolled, its 8 independent
+//                      butterflies are.  Its product is a reduction policy
+//                      of modarith.cuh: ShoupRed, or SolinasRed under the
+//                      NTT_MULMOD=solinas switch (ntt_diag_math_solinas_u*,
+//                      (e, k) before the stream, no w_con read), as the
+//                      Pallas probe's ops.fwd_bfly takes the Solinas
+//                      product there.
+//   diag_mul_kernel    diag_mul :402.  The first round's load into
+//                      registers, n_mults steps x * c + 1 (mod 2^32) on each
+//                      32-bit half of the thread's 16 words, and a store
+//                      straight from registers at the same stride (a warp
+//                      stores 32 consecutive words an instruction): 32-bit
+//                      multiply throughput.  The step loop is outside and
+//                      the loop over the 16 / 32 halves inside, so each step
+//                      issues 16 (word 32) / 32 (word 64) independent
+//                      mad.lo.u32, in inline PTX with c a kernel argument
+//                      so that no chain folds into one multiply.  No shared
+//                      memory and no barrier: registers alone set the
+//                      blocks an SM (at least kMulMinBlocks).  On an H100
+//                      the step loop runs at the card's 32-bit multiply
+//                      rate; what the probe takes beyond its multiplies is
+//                      the part of its loads and stores they do not hide,
+//                      and one block an SM ran as fast as two.
 //   diag_moves         diag_moves :479.  K1 itself, rounds_kernel<T, ...,
 //                      Swaps> (rounds.cuh), with the movement-only policy
 //                      in place of the reduction policy: K1's load, its
@@ -40,22 +58,21 @@
 //                      none, so neither has this.  It follows any later
 //                      redesign of K1's rounds by construction.
 //
-// diag_copy and diag_moves run K1's design point, so at the same shape
-// diag_copy is K1's memory path, diag_moves - diag_copy its exchanges and
-// barriers, and K1 - diag_moves what its butterflies and twiddle loads add.
-// diag_mul and diag_math keep K1's first geometry (poly_block.cuh: one block
-// per polynomial, min(N/2, 1024) threads, the polynomial loaded once into
-// dynamic shared memory and stored once).
+// At the same shape diag_copy is K1's memory path, diag_math - diag_copy
+// what K1's butterflies add to it, diag_moves - diag_copy K1's exchanges and
+// barriers, and K1 - diag_moves - (diag_math - diag_copy) what its twiddle
+// loads add (lab.k1_split).  Each is what K1 pays beyond the part before it,
+// since warps overlap one part with another, not a time of its own.
 //
 // What bounds them: copy and moves move 2 x N words through device memory a
 // polynomial and do no arithmetic (bytes); mul does 42 x word/32 32-bit
-// multiplies a word, about as long as its bytes at word 64; math does
-// n_rounds x N/2 butterflies.  None is tuned: each is K1's own
-// structure with the other parts taken out.
+// multiplies a word, about as long as its bytes at word 64; math moves
+// copy's bytes and issues n_rounds x N/2 butterflies (29 SASS instructions
+// at word 64, 9 at word 32, python -m ntt_tpu_torch.sass).  None is tuned:
+// each is K1's own structure with the other parts taken out.
 #include <cuda_runtime.h>
 
 #include "modarith.cuh"
-#include "poly_block.cuh"
 #include "rounds.cuh"
 
 namespace ntt {
@@ -102,6 +119,10 @@ int launch_moves(const void* in, void* out, int batch, int logn, void* stream) {
                                  0, stream, Swaps());
 }
 
+// The least blocks an SM diag_mul_kernel is compiled for: 64 registers a
+// thread at 512 threads, room for a word-64 thread's 32 halves.
+constexpr int kMulMinBlocks = 2;
+
 __device__ __forceinline__ u32 mad_step(u32 x, u32 c) {
 #if defined(__CUDA_ARCH__)
   u32 r;
@@ -112,48 +133,106 @@ __device__ __forceinline__ u32 mad_step(u32 x, u32 c) {
 #endif
 }
 
-__device__ __forceinline__ u32 mad_word(u32 x, u32 c, int n_mults) {
-  for (int k = 0; k < n_mults; ++k) x = mad_step(x, c);
-  return x;
+// One step on each 32-bit half of a word.
+__device__ __forceinline__ u32 mad_word(u32 x, u32 c) { return mad_step(x, c); }
+__device__ __forceinline__ u64 mad_word(u64 x, u32 c) {
+  return ((u64)mad_step((u32)(x >> 32), c) << 32) | mad_step((u32)x, c);
 }
 
-__device__ __forceinline__ u64 mad_word(u64 x, u32 c, int n_mults) {
-  const u32 lo = mad_word((u32)x, c, n_mults);
-  const u32 hi = mad_word((u32)(x >> 32), c, n_mults);
-  return ((u64)hi << 32) | lo;
+// Each group of the first round from device memory into registers, n_mults
+// steps on every half at once, and back to device memory at the same stride.
+template <typename T, int K>
+__device__ __forceinline__ void mul_path(const T* __restrict__ gin, T* __restrict__ gout, u32 c,
+                                         int n_mults, int logn, bool vec) {
+  constexpr int R = 1 << K;
+  const int t = 1 << (logn - K);
+#pragma unroll 1
+  for (int j = threadIdx.x; j < t; j += blockDim.x) {
+    T x[R];
+    load_group<T, R>(x, gin + j, t, vec);
+#pragma unroll 1
+    for (int k = 0; k < n_mults; ++k) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) x[i] = mad_word(x[i], c);
+    }
+    store_group<T, R>(x, gout + j, t, vec);
+  }
+}
+
+template <typename T, int K, int THREADS, int MINB>
+__global__ void __launch_bounds__(THREADS, MINB)
+diag_mul_kernel(const T* __restrict__ in, T* __restrict__ out, u32 c, int n_mults, int logn) {
+  const T* gin = in + ((size_t)blockIdx.x << logn);
+  T* gout = out + ((size_t)blockIdx.x << logn);
+  const bool vec = ((reinterpret_cast<size_t>(in) | reinterpret_cast<size_t>(out)) & 15) == 0;
+  switch (logn < K ? logn : K) {
+    case 1: mul_path<T, 1>(gin, gout, c, n_mults, logn, vec); break;
+    case 2: mul_path<T, kMin<K, 2>>(gin, gout, c, n_mults, logn, vec); break;
+    case 3: mul_path<T, kMin<K, 3>>(gin, gout, c, n_mults, logn, vec); break;
+    default: mul_path<T, K>(gin, gout, c, n_mults, logn, vec); break;
+  }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
-diag_mul_kernel(const T* __restrict__ in, T* __restrict__ out, u32 c, int n_mults,
-                int logn) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a = reinterpret_cast<T*>(smem_raw);
-  const int n = 1 << logn;
-  const size_t base = (size_t)blockIdx.x << logn;
-  load_poly<T>(a, in + base, n);
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    out[base + i] = mad_word(a[i], c, n_mults);
+int launch_mul(const void* in, void* out, u32 c, int n_mults, int batch, int logn,
+               void* stream) {
+  typedef Fused<T> F;
+  return launch_fused<T>(diag_mul_kernel<T, F::kLogR, F::kThreads, kMulMinBlocks>, batch, logn,
+                         0, stream, (const T*)in, (T*)out, c, n_mults, logn);
 }
 
-template <typename T, class Red>
-__global__ void __launch_bounds__(kMaxThreads)
+// copy_path with n_rounds butterflies of each register pair (u, u + R/2),
+// coefficients N/2 apart, under w[1] between the load and the write into
+// the exchange buffer.
+template <typename T, int K, class Red>
+__device__ __forceinline__ void math_path(const T* __restrict__ gin, T* __restrict__ gout,
+                                          T* sm, T w1, T wc1, T q, Red red, int n_rounds,
+                                          int logn, bool vec) {
+  constexpr int R = 1 << K;
+  const int t = 1 << (logn - K);
+#pragma unroll 1
+  for (int j = threadIdx.x; j < t; j += blockDim.x) {
+    T x[R];
+    load_group<T, R>(x, gin + j, t, vec);
+#pragma unroll 1
+    for (int r = 0; r < n_rounds; ++r) {
+#pragma unroll
+      for (int u = 0; u < R / 2; ++u) fwd_bfly<T>(x[u], x[u + R / 2], w1, wc1, q, red);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) sm[padded<T>(j + i * t)] = x[i];
+  }
+  __syncthreads();
+  copy_out<T>(gout, sm, 1 << logn, false, (T)0, vec);
+}
+
+template <typename T, int K, int THREADS, int MINB, class Red>
+__global__ void __launch_bounds__(THREADS, MINB)
 diag_math_kernel(const T* __restrict__ in, T* __restrict__ out, const T* __restrict__ w,
                  const T* __restrict__ w_con, T q, int n_rounds, int logn, Red red) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* a = reinterpret_cast<T*>(smem_raw);
-  const int n = 1 << logn;
-  const int half = n >> 1;
-  const size_t base = (size_t)blockIdx.x << logn;
-  load_poly<T>(a, in + base, n);
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const T* gin = in + ((size_t)blockIdx.x << logn);
+  T* gout = out + ((size_t)blockIdx.x << logn);
+  const bool vec = ((reinterpret_cast<size_t>(in) | reinterpret_cast<size_t>(out)) & 15) == 0;
   const T w1 = __ldg(w + 1), wc1 = Red::kCon ? __ldg(w_con + 1) : (T)0;
-  for (int j = threadIdx.x; j < half; j += blockDim.x) {
-    T x = a[j];
-    T y = a[j + half];
-    for (int r = 0; r < n_rounds; ++r) fwd_bfly<T, Red>(x, y, w1, wc1, q, red);
-    out[base + j] = x;
-    out[base + j + half] = y;
+#define NTT_MATH(KK) math_path<T, KK, Red>(gin, gout, sm, w1, wc1, q, red, n_rounds, logn, vec)
+  switch (logn < K ? logn : K) {
+    case 1: NTT_MATH(1); break;
+    case 2: NTT_MATH((kMin<K, 2>)); break;
+    case 3: NTT_MATH((kMin<K, 3>)); break;
+    default: NTT_MATH(K); break;
   }
+#undef NTT_MATH
+}
+
+template <typename T, class Red>
+int launch_math(const void* in, void* out, const void* w, const void* w_con, u64 q,
+                int n_rounds, int batch, int logn, void* stream, Red red) {
+  typedef Fused<T> F;
+  return launch_fused<T>(diag_math_kernel<T, F::kLogR, F::kThreads, F::kMinBlocks, Red>, batch,
+                         logn, exchange_bytes<T>(logn), stream, (const T*)in, (T*)out,
+                         (const T*)w, (const T*)w_con, (T)q, n_rounds, logn, red);
 }
 
 }  // namespace
@@ -171,25 +250,20 @@ extern "C" {
   }                                                                                   \
   int ntt_diag_mul_u##W(const void* in, void* out, unsigned long long c, int n_mults, \
                         int batch, int logn, void* stream) {                          \
-    return ntt::launch_per_poly<T>(ntt::diag_mul_kernel<T>, batch, logn, stream,      \
-                                   (const T*)in, (T*)out, (ntt::u32)c, n_mults, logn);  \
+    return ntt::launch_mul<T>(in, out, (ntt::u32)c, n_mults, batch, logn, stream);    \
   }                                                                                   \
   int ntt_diag_math_u##W(const void* in, void* out, const void* w, const void* w_con, \
                          unsigned long long q, int n_rounds, int batch, int logn,     \
                          void* stream) {                                              \
-    return ntt::launch_per_poly<T>(ntt::diag_math_kernel<T, ntt::ShoupRed>, batch,    \
-                                   logn, stream, (const T*)in, (T*)out, (const T*)w,  \
-                                   (const T*)w_con, (T)q, n_rounds, logn,             \
-                                   ntt::ShoupRed());                                  \
+    return ntt::launch_math<T>(in, out, w, w_con, q, n_rounds, batch, logn, stream,   \
+                               ntt::ShoupRed());                                      \
   }                                                                                   \
   int ntt_diag_math_solinas_u##W(const void* in, void* out, const void* w,           \
                                  const void* w_con, unsigned long long q,            \
                                  int n_rounds, int batch, int logn, int e, int k,    \
                                  void* stream) {                                      \
-    return ntt::launch_per_poly<T>(ntt::diag_math_kernel<T, ntt::SolinasRed>, batch,  \
-                                   logn, stream, (const T*)in, (T*)out, (const T*)w,  \
-                                   (const T*)w_con, (T)q, n_rounds, logn,             \
-                                   ntt::SolinasRed{e, k});                            \
+    return ntt::launch_math<T>(in, out, w, w_con, q, n_rounds, batch, logn, stream,   \
+                               ntt::SolinasRed{e, k});                                \
   }                                                                                   \
   int ntt_diag_moves_u##W(const void* in, void* out, int batch, int logn,            \
                           void* stream) {                                             \

@@ -4,28 +4,31 @@ PyTorch versions and their wrappers.
 The counterpart of the Pallas lab's diagnostic kernels
 (``tools/pallas_lab.py``: ``diag_copy`` :444, ``diag_mul`` :402,
 ``diag_math`` :455, ``diag_moves`` :479, all through ``_diag_call`` :419).
-Each probe runs one part of K1's work (``kernels/fused.py``), so that
-their times split K1's:
+Each probe runs one part of K1's work (``kernels/fused.py``) at K1's design
+point (``csrc/rounds.cuh``'s ``Fused<T>``: 512 threads at most, 16 words a
+thread taken by K1's first-round load at stride N/16), so that their
+times split K1's:
 
-  * ``diag_copy``: the identity, on K1's memory path alone at K1's design
-    point (``csrc/rounds.cuh``'s ``Fused<T>``: 512 threads, K1's shared
+  * ``diag_copy``: the identity, on K1's memory path alone (K1's shared
     memory and occupancy): K1's first-round load into registers, one
     barrier and its coalesced store, no rounds;
+  * ``diag_math``: ``n_rounds`` Harvey butterflies of coefficient i with
+    i + N/2 under stage 0's twiddle w[1], on ``diag_copy``'s path: at
+    n_rounds = m, K1's butterfly count without its twiddle loads or
+    exchanges;
   * ``diag_moves``: K1 itself with each butterfly replaced by a swap of its
     pair (the movement-only policy ``Swaps``): K1's load, exchanges,
     barriers and store without arithmetic or twiddle loads.  Each stage
     flips one bit of the index, so the result is the polynomial reversed;
   * ``diag_mul``: every 32-bit half of every word takes ``x*c + 1 mod 2^32``
-    42 times (c = 0x9E3779B1, as the Pallas probe): multiply throughput;
-  * ``diag_math``: ``n_rounds`` Harvey butterflies of coefficient i with
-    i + N/2 under stage 0's twiddle w[1]: the arithmetic without movement.
+    42 times (c = 0x9E3779B1, as the Pallas probe), the thread's 16 / 32
+    halves one step at a time, stored from registers, with no shared
+    memory: 32-bit multiply throughput.
 
-At the same shape ``diag_copy`` is K1's memory path, ``diag_moves -
-diag_copy`` its exchanges and barriers, and K1 - ``diag_moves`` what its
-butterflies and twiddle loads add (``lab.k1_split``).  ``diag_mul`` and
-``diag_math`` keep K1's first geometry (one block per polynomial,
-``min(N/2, 1024)`` threads, the polynomial loaded once into shared memory
-and stored once).  Every probe takes N up to ``fused.max_logn``, as K1,
+At the same shape ``diag_copy`` is K1's memory path, ``diag_math -
+diag_copy`` what its butterflies add, ``diag_moves - diag_copy`` its
+exchanges and barriers, and the rest of K1 what its twiddle loads add
+(``lab.k1_split``).  Every probe takes N up to ``fused.max_logn``, as K1,
 on either route.
 
 The Pallas probes take a batch that is a multiple of their tile; these take
@@ -98,14 +101,14 @@ def _launch(probe: str, a: torch.Tensor, *args, solinas=None) -> torch.Tensor:
     return out
 
 
-def plain_mul(a: torch.Tensor) -> torch.Tensor:
+def plain_mul(a: torch.Tensor, n_mults: int = N_MULTS) -> torch.Tensor:
     if _word(a) == 32:
         c = mm.s32(MUL_C)
-        for _ in range(N_MULTS):
+        for _ in range(n_mults):
             a = a * c + 1  # int32 arithmetic wraps mod 2^32
         return a
     lo, hi = a & mm.MASK32, mm.shr64(a, 32)
-    for _ in range(N_MULTS):
+    for _ in range(n_mults):
         lo = (lo * MUL_C + 1) & mm.MASK32
         hi = (hi * MUL_C + 1) & mm.MASK32
     return (hi << 32) | lo
@@ -129,12 +132,13 @@ def diag_copy(a: torch.Tensor) -> torch.Tensor:
     return _launch("copy", a)
 
 
-def diag_mul(a: torch.Tensor) -> torch.Tensor:
-    """``x*c + 1 mod 2^32``, N_MULTS times, on each 32-bit half of each word."""
+def diag_mul(a: torch.Tensor, n_mults: int = N_MULTS) -> torch.Tensor:
+    """``x*c + 1 mod 2^32``, n_mults times (the Pallas probe's N_MULTS
+    unless a timing asks for more), on each 32-bit half of each word."""
     _logn(a)
     if native.route(a) == "cpu":
-        return plain_mul(a)
-    return _launch("mul", a, MUL_C, N_MULTS)
+        return plain_mul(a, n_mults)
+    return _launch("mul", a, MUL_C, n_mults)
 
 
 def diag_math(a: torch.Tensor, plan: NttPlan, n_rounds: int) -> torch.Tensor:

@@ -18,12 +18,14 @@ it runs on one batch of random polynomials below q:
     of up to four stages that read the same positions every round;
   * ``i1``: K2 (``kernels.fused.inv_fused``);
   * ``diag-copy``, ``diag-math`` (m rounds), ``diag-moves``, ``diag-mul``
-    (42 multiplies): the L3 probes (``kernels.probes``).  ``diag-copy`` and
-    ``diag-moves`` run K1's design point, so they split K1's time
-    (``k1_split``): its memory path (``diag-copy``), its exchanges and
-    barriers (``diag-moves`` - ``diag-copy``) and what its butterflies and
-    twiddle loads add (K1 - ``diag-moves``); ``diag-math`` and ``diag-mul``
-    keep K1's first geometry and price the arithmetic and the multiplies.
+    (42 multiplies): the L3 probes (``kernels.probes``).  All four run
+    K1's design point, and three of them split K1's time (``k1_split``):
+    its memory path (``diag-copy``), what its butterflies add
+    (``diag-math`` - ``diag-copy``: K1's m rounds of N/2 butterflies on
+    K1's memory path), its exchanges and barriers (``diag-moves`` -
+    ``diag-copy``), and what its twiddle loads and the rest add (K1 -
+    ``diag-moves`` - (``diag-math`` - ``diag-copy``)); ``diag-mul`` prices
+    the 32-bit multiplies the bounds divide by.
 
 K1, L1 and L2 run at one design point (K1's: 16 words a thread, at most
 512 threads, the padded exchange buffer), so their times differ by their
@@ -36,7 +38,7 @@ Every forward candidate must equal the plain six-step at that split
 same tensor.  A mismatch raises.  Times are device
 times (``cuda_us``: a CUDA graph of ``INNER`` calls between two CUDA
 events, after two warm-up calls, the minimum over ``--reps``), printed per
-transform beside the card's name and power limit.  Where K1 and both
+transform beside the card's name and power limit.  Where K1 and the three
 probes are timed, each case ends with K1's split beside ``Tensor.clone()``
 and ``Tensor.flip(-1)`` on the same input (the one PyTorch call that
 computes each probe's function) and each one's bound, the bytes it must
@@ -121,13 +123,37 @@ def candidates(plan: NttPlan, n1_log: int) -> dict[str, Candidate]:
     }
 
 
-def k1_split(k1: float, copy: float, moves: float) -> dict[str, float]:
-    """K1's time split by the two probes on its design point, all three
-    timed at the same shape: its memory path (diag_copy), its exchanges and
-    barriers (diag_moves - diag_copy), and what its butterflies and twiddle
-    loads add (K1 - diag_moves)."""
-    return {"memory path": copy, "exchanges and barriers": moves - copy,
-            "butterflies and twiddle loads": k1 - moves}
+def k1_split(k1: float, copy: float, moves: float, math: float) -> dict[str, float]:
+    """K1's time split by the three probes on its design point, all four
+    timed at the same shape: its memory path (diag_copy), what its
+    butterflies add (diag_math - diag_copy), its exchanges and barriers
+    (diag_moves - diag_copy), and what its twiddle loads and the rest add
+    (K1 - diag_moves - (diag_math - diag_copy)).  Each part is what K1 pays
+    beyond the parts before it; warps overlap one part with another, so a
+    part is no time of its own and can come out negative."""
+    return {"memory path": copy, "butterflies": math - copy,
+            "exchanges and barriers": moves - copy,
+            "twiddle loads and the rest": k1 - moves - (math - copy)}
+
+
+def marginal_rates(plan: NttPlan, x: torch.Tensor, reps: int = 3) -> dict[str, float]:
+    """What one more step of the two arithmetic probes costs on the card, on
+    x (a batch of N = 2^m): diag_mul at N_MULTS and 4 N_MULTS steps and
+    diag_math at m and 2m rounds, each timed as the lab times (``cuda_us``,
+    us a call).  The differences leave out the memory path both probes
+    share with diag_copy, so they give the 32-bit multiplies a second of
+    diag_mul's step loop (``mul_per_s``) and the butterflies a second of
+    diag_math's round loop (``bfly_per_s``)."""
+    m, n, batch = plan.m, x.shape[-1], x.numel() // x.shape[-1]
+    k = probes.N_MULTS
+    us = {"mul": [cuda_us(lambda v, s=s: probes.diag_mul(v, s), x, reps, INNER)
+                  for s in (k, 4 * k)],
+          "math": [cuda_us(lambda v, r=r: probes.diag_math(v, plan, r), x, reps, INNER)
+                   for r in (m, 2 * m)]}
+    halves = n * batch * plan.word // 32
+    return {"mul_us": us["mul"], "math_us": us["math"],
+            "mul_per_s": 3 * k * halves / ((us["mul"][1] - us["mul"][0]) * 1e-6),
+            "bfly_per_s": m * n // 2 * batch / ((us["math"][1] - us["math"][0]) * 1e-6)}
 
 
 def bytes_bound_us(word: int, m: int, batch: int, tw_words: int = 0) -> float:
@@ -211,8 +237,8 @@ def run_case(case: str, args, device: torch.device, where: str) -> list[dict]:
         print(line, flush=True)
         records.append(rec)
     us = {r["name"]: r["us_per_transform"] for r in records}
-    if all(us.get(k) is not None for k in ("v1", "diag-copy", "diag-moves")):
-        split = k1_split(us["v1"], us["diag-copy"], us["diag-moves"])
+    if all(us.get(k) is not None for k in ("v1", "diag-copy", "diag-moves", "diag-math")):
+        split = k1_split(us["v1"], us["diag-copy"], us["diag-moves"], us["diag-math"])
         lib = {k: cuda_us(f, x, args.reps, INNER) / args.batch
                for k, f in (("clone()", lambda v: v.clone()), ("flip(-1)", lambda v: v.flip(-1)))}
         data = bytes_bound_us(plan.word, p.m, args.batch)

@@ -6,10 +6,12 @@ Imports ``ntt_tpu_torch`` from DIR (default: the tree holding this file),
 builds its kernels, and prints one JSON line of device times in us a call,
 each the minimum over two passes of a CUDA graph of launches
 (``lab.cuda_us``), of K1 (``v1``), L1 in rounds of one and two stages
-(``v2-r2``, ``v2-r4``) and L2 (``v3``) at the lab's shapes: m14 batch 512
-at both widths with the Shoup product, and under the NTT_MULMOD=solinas
-switch the word-64 q at m14 batch 512 and the word-32 q at m10 batch 8192
-(the lab's q where the switch takes the Solinas product).  It calls only
+(``v2-r2``, ``v2-r4``), L2 (``v3``) and the four L3 probes
+(``diag-copy``, ``diag-mul``, ``diag-math`` at m rounds, ``diag-moves``)
+at the lab's shapes: m14 batch 512 at both widths with the Shoup product,
+and under the NTT_MULMOD=solinas switch the word-64 q at m14 batch 512 and
+the word-32 q at m10 batch 8192 (the lab's q where the switch takes the
+Solinas product).  It calls only
 ``lab.candidates`` and ``lab.case_params``, which every tree since the
 lab's Solinas instantiations has, so run it for two trees in one command,
 in turns (A, B, B, A), to compare them on one card.  It needs a CUDA card
@@ -27,7 +29,7 @@ import sys
 # (case, m, batch, Solinas switch)
 SHAPES = (("u64", 14, 512, False), ("u32", 14, 512, False), ("u64", 14, 512, True),
           ("u32", 10, 8192, True))
-NAMES = ("v1", "v2-r2", "v2-r4", "v3")
+NAMES = ("v1", "v2-r2", "v2-r4", "v3", "diag-copy", "diag-mul", "diag-math", "diag-moves")
 
 
 def main() -> int:

@@ -15,8 +15,16 @@ NTT_MULMOD=solinas switch), and beside its instructions are its integer
 multiplies: the IMAD / IMUL instructions that multiply (not the IMAD.MOV,
 IMAD.SHL and IMAD.IADD forms, which move, shift and add), one 32-bit
 multiply each, IMAD.WIDE (32 x 32 -> 64 bits plus a 64-bit addend) and
-IMAD.HI included, so the count is of 32 x 32-bit multiplier passes.  Needs
-nvcc and cuobjdump (the CUDA toolkit), not a card.
+IMAD.HI included, so the count is of 32 x 32-bit multiplier passes.
+
+It also compiles ``csrc/probes.cu`` and prints the innermost loop of the
+probes ``diag_mul`` and ``diag_math`` at 16 words a thread: ``diag_mul``'s
+step loop must hold 16 (word 32) / 32 (word 64) multiplies, one
+``mad.lo.u32`` a 32-bit half, and no loop fewer than its group's halves
+(no chain folded into fewer multiplies); ``diag_math``'s round loop holds
+its 8 butterflies, so its instructions over 8 are a butterfly's in K1's
+setting (constants hoisted out of the loop).  Needs nvcc and cuobjdump
+(the CUDA toolkit), not a card.
 """
 
 from __future__ import annotations
@@ -59,7 +67,13 @@ WIDTH(u64, 64)
 _NOT_COUNTED = ("LD", "ST", "ULD", "S2R", "S2UR", "BRA", "EXIT", "NOP")
 _NOT_MULTIPLIES = ("IMAD.MOV", "IMAD.SHL", "IMAD.IADD")
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
-_INSTRUCTION = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?\w+\s+)?([A-Z][A-Z0-9_.]*)")
+_INSTRUCTION = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?\w+\s+)?([A-Z][A-Z0-9_.]*)")
+_BRANCH = re.compile(r"\bBRA(?:\.[A-Z0-9_]+)*\s+(?:`\()?0x([0-9a-f]+)")
+# the probes' kernels at 16 words a thread, by a piece of each mangled name:
+# the kernel, its word (j: unsigned int, y: unsigned long long) and policy
+PROBE_LOOPS = {f"diag_{k}{p}_u{w}": (f"diag_{k}_kernelI{t}Li4E", r)
+               for w, t in ((32, "j"), (64, "y")) for k, p, r in
+               (("mul", "", ""), ("math", "", "ShoupRed"), ("math", "_solinas", "SolinasRed"))}
 
 
 def count(sass: str) -> dict[str, collections.Counter]:
@@ -74,8 +88,36 @@ def count(sass: str) -> dict[str, collections.Counter]:
             out[fn] = collections.Counter()
             continue
         m = _INSTRUCTION.search(line)
-        if fn and m and not m.group(2).startswith(_NOT_COUNTED):
-            out[fn][m.group(2)] += 1
+        if fn and m and not m.group(3).startswith(_NOT_COUNTED):
+            out[fn][m.group(3)] += 1
+    return out
+
+
+def inner_loops(sass: str) -> dict[str, list[collections.Counter]]:
+    """Per function of a ``cuobjdump -sass`` listing, the opcodes of each
+    innermost loop, in address order: a loop is a branch back to an earlier
+    address, its body the instructions from that address to the branch,
+    every instruction counted; innermost, it holds no other such body.  The
+    branch that spins on itself after EXIT is no loop."""
+    funcs: dict[str, list] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = _FUNCTION.match(line)
+        if m:
+            fn = m.group(1)
+            funcs[fn] = []
+            continue
+        m = _INSTRUCTION.search(line)
+        if fn and m:
+            b = _BRANCH.search(line)
+            funcs[fn].append((int(m.group(1), 16), m.group(3), int(b.group(1), 16) if b else None))
+    out = {}
+    for fn, ins in funcs.items():
+        loops = [(t, a) for a, _, t in ins if t is not None and t < a]
+        inner = [(lo, hi) for lo, hi in loops
+                 if not any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi) for l2, h2 in loops)]
+        out[fn] = [collections.Counter(op for a, op, _ in ins if lo <= a <= hi)
+                   for lo, hi in sorted(inner)]
     return out
 
 
@@ -113,6 +155,35 @@ def butterfly_counts() -> dict[str, dict]:
     return result
 
 
+def probe_loops() -> dict[str, dict]:
+    """{'diag_mul_u64': {'instructions': n, 'multiplies': n, 'loops': [...],
+    'opcodes': {...}}, ...}: the largest innermost loop of each probe of
+    ``PROBE_LOOPS`` in ``csrc/probes.cu`` as the package compiles it, its
+    opcodes, and the multiplies of each of its innermost loops (one a size
+    of group, 2 to 16 words)."""
+    nvcc = native.find_nvcc()
+    cuobjdump = str(pathlib.Path(nvcc).with_name("cuobjdump"))
+    native.BUILD.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=native.BUILD) as tmp:
+        cubin = pathlib.Path(tmp) / "probes.cubin"
+        subprocess.run([nvcc, *native.COMPILE_FLAGS, "-cubin", "-o", str(cubin),
+                        str(native.CSRC / "probes.cu")],
+                       check=True, capture_output=True, text=True, timeout=300)
+        sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+                              capture_output=True, text=True, timeout=300).stdout
+    loops = inner_loops(sass)
+    result = {}
+    for name, (kernel, policy) in PROBE_LOOPS.items():
+        fns = [f for f in loops if kernel in f and policy in f]
+        if len(fns) != 1:
+            raise RuntimeError(f"{name}: {len(fns)} functions match {kernel} {policy}")
+        body = max(loops[fns[0]], key=lambda c: sum(c.values()))
+        result[name] = {"instructions": sum(body.values()), "multiplies": multiplies(body),
+                        "loops": [multiplies(c) for c in loops[fns[0]]],
+                        "opcodes": dict(sorted(body.items()))}
+    return result
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.parse_args(argv)
@@ -120,8 +191,15 @@ def main(argv=None) -> dict:
     for name, r in result.items():
         print(f"  {name}: {r['instructions']} SASS instructions, {r['multiplies']} "
               f"multiplies ({r['opcodes']})")
-    print(json.dumps({"sass_per_butterfly": {k: v["instructions"] for k, v in result.items()}}))
-    return result
+    loops = probe_loops()
+    for name, r in loops.items():
+        print(f"  {name} at 16 words a thread: innermost loop {r['instructions']} SASS "
+              f"instructions, {r['multiplies']} multiplies ({r['opcodes']}); multiplies of "
+              f"each innermost loop {r['loops']}")
+    print(json.dumps({"sass_per_butterfly": {k: v["instructions"] for k, v in result.items()},
+                      "probe_loops": {k: [v["instructions"], v["multiplies"]]
+                                      for k, v in loops.items()}}))
+    return {**result, **loops}
 
 
 if __name__ == "__main__":

@@ -174,21 +174,49 @@ def test_l1_l2_equal_k1_and_refuse_bad_arguments(width):
         probes.diag_copy(x[..., :48])
 
 
-@pytest.mark.parametrize("word", [32, 64])
-def test_copy_and_moves_on_cpu_at_every_m_k1_serves(word):
-    """diag_copy / diag_moves run K1's design point on the card, so they take
-    the m K1 takes: on the CPU route clone() / flip(-1) at every m from 1 to
-    fused.max_logn(word), and one m beyond refused with K1's message."""
+def numpy_mul_chain(a: np.ndarray, word: int) -> np.ndarray:
+    """diag_mul's function in numpy: N_MULTS steps x * c + 1 mod 2^32 on
+    each 32-bit half of each word, as the words' bit patterns."""
+    halves = a.view(np.uint32)  # word 64: (lo, hi) pairs, little-endian
+    c = np.uint32(probes.MUL_C)
+    for _ in range(probes.N_MULTS):
+        halves = halves * c + np.uint32(1)  # uint32 arrays wrap mod 2^32
+    return halves.view(a.dtype)
+
+
+# diag_copy keeps the ids this test had before it took every probe
+@pytest.mark.parametrize("probe,word", [
+    pytest.param(probe, word, id=str(word) if probe == "copy" else f"{probe}-{word}")
+    for probe in PROBES for word in (32, 64)])
+def test_copy_and_moves_on_cpu_at_every_m_k1_serves(probe, word):
+    """The probes run K1's design point on the card, so they take the m K1
+    takes: on the CPU route at every m from 1 to fused.max_logn(word)
+    diag_copy / diag_moves are clone() / flip(-1), diag_mul equals a numpy
+    uint32 chain and diag_math at 0 rounds gives its input (below 4q) back;
+    one m beyond is refused with K1's message."""
     dtype = torch.int32 if word == 32 else torch.int64
     rng = np.random.default_rng(word)
+    case = f"u{word}"
     for m in range(1, fused.max_logn(word) + 1):
         a = torch.from_numpy(rng.integers(-2**31, 2**31, size=(3, 1 << m))).to(dtype)
-        assert torch.equal(probes.diag_copy(a), a)
-        assert torch.equal(probes.diag_moves(a), a.flip(-1))
+        if probe == "copy":
+            assert torch.equal(probes.diag_copy(a), a)
+        elif probe == "moves":
+            assert torch.equal(probes.diag_moves(a), a.flip(-1))
+        elif probe == "mul":
+            np.testing.assert_array_equal(probes.diag_mul(a).numpy(),
+                                          numpy_mul_chain(a.numpy(), word))
+        else:
+            p = lab.case_params(case, m)
+            a = mm.from_host(rng.integers(0, 4 * p.q, size=(3, p.n), dtype=np.uint64), p.q,
+                             "cpu")
+            assert torch.equal(probes.diag_math(a, get_plan(p), 0), a)
     beyond = torch.zeros((1, 2 << fused.max_logn(word)), dtype=dtype)
-    for probe in (probes.diag_copy, probes.diag_moves):
-        with pytest.raises(ValueError, match="exceeds one block's shared memory"):
-            probe(beyond)
+    run = {"copy": probes.diag_copy, "mul": probes.diag_mul, "moves": probes.diag_moves,
+           "math": lambda x: probes.diag_math(
+               x, get_plan(lab.case_params(case, fused.max_logn(word))), 0)}[probe]
+    with pytest.raises(ValueError, match="exceeds one block's shared memory"):
+        run(beyond)
 
 
 def test_k1_split_and_bounds_of_the_lab(monkeypatch):
@@ -196,10 +224,15 @@ def test_k1_split_and_bounds_of_the_lab(monkeypatch):
     chip_smoke's (bytes over the memory rate) per transform."""
     import chip_smoke
 
-    split = lab.k1_split(k1=290.5, copy=60.25, moves=140.0)
-    assert split == {"memory path": 60.25, "exchanges and barriers": 79.75,
-                     "butterflies and twiddle loads": 150.5}
+    split = lab.k1_split(k1=290.5, copy=60.25, moves=140.0, math=120.5)
+    assert split == {"memory path": 60.25, "butterflies": 60.25,
+                     "exchanges and barriers": 79.75, "twiddle loads and the rest": 90.25}
     assert sum(split.values()) == 290.5
+    # warps overlap the parts: a probe can cost more beyond diag_copy than
+    # K1 has left, and the last part then comes out negative
+    assert lab.k1_split(k1=100.0, copy=40.0, moves=60.0, math=90.0) == {
+        "memory path": 40.0, "butterflies": 50.0, "exchanges and barriers": 20.0,
+        "twiddle loads and the rest": -10.0}
     monkeypatch.setattr(chip_smoke, "SOLINAS_MULS", {32: 1, 64: 9})  # read from SASS on the card
     for word in (32, 64):
         for kernel, solinas, tw_words in (("diag_copy", False, 0), ("fwd_fused", False, 2),
@@ -208,6 +241,29 @@ def test_k1_split_and_bounds_of_the_lab(monkeypatch):
                                                               solinas))
             assert by == "bytes"
             assert lab.bytes_bound_us(word, 14, 512, tw_words) * 512 == pytest.approx(ms * 1e3)
+
+
+def test_marginal_rates_take_the_differences_of_the_probes_times(monkeypatch):
+    """lab.marginal_rates on made-up device times: the 3 N_MULTS extra steps
+    on every 32-bit half over diag_mul's extra time, the m extra rounds of
+    N/2 butterflies over diag_math's; every call runs (here its plain
+    version)."""
+    w = get_width("w64")
+    x = w.port()
+    calls = []
+
+    def fake_us(fn, v, reps, inner):
+        calls.append(fn(v))
+        return {1: 10.0, 2: 25.0, 3: 30.0, 4: 42.0}[len(calls)]
+
+    monkeypatch.setattr(lab, "cuda_us", fake_us)
+    rates = lab.marginal_rates(w.plan, x)
+    assert torch.equal(calls[1], probes.plain_mul(x, 4 * probes.N_MULTS))
+    assert torch.equal(calls[3], probes.plain_math(x, w.plan, 2 * M))
+    halves = BATCH * w.jp.n * 2
+    assert rates["mul_us"] == [10.0, 25.0] and rates["math_us"] == [30.0, 42.0]
+    assert rates["mul_per_s"] == pytest.approx(3 * probes.N_MULTS * halves / 15e-6)
+    assert rates["bfly_per_s"] == pytest.approx(M * w.jp.n // 2 * BATCH / 12e-6)
 
 
 def test_lab_main_on_cpu_checks_every_candidate_and_launches_nothing(capsys):
@@ -252,6 +308,35 @@ def test_sass_count_reads_a_cuobjdump_listing():
     got = sass.count(listing)
     assert got == {"fwd_bfly_u64": {"IMAD.WIDE.U32": 1, "IADD3": 1},
                    "none_u64": {"IMAD.MOV.U32": 1}}
+
+
+def test_sass_inner_loops_finds_the_innermost_bodies():
+    """A loop is a branch back to an earlier address; the outer loop that
+    holds another is not innermost, and the spin after EXIT is no loop."""
+    listing = """
+        Function : _ZN3ntt12_GLOBAL__N_115diag_mul_kernelIjLi4ELi512ELi2EEEvPKT_PS2_jii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   LDG.E R2, desc[UR4][R8.64] ;
+        /*0020*/                   IMAD R2, R2, UR6, 0x1 ;
+        /*0030*/                   IMAD R3, R3, UR6, 0x1 ;
+        /*0040*/                   IADD3 R4, R4, 0x1, RZ ;
+        /*0050*/                   ISETP.GE.AND P0, PT, R4, R5, PT ;
+        /*0060*/              @!P0 BRA 0x20 ;
+        /*0070*/                   IMAD.MOV.U32 R4, RZ, RZ, RZ ;
+        /*0080*/              @!P1 BRA 0x10 ;
+        /*0090*/                   EXIT ;
+        /*00a0*/                   BRA 0xa0;
+        Function : none_u32
+        /*0000*/                   EXIT ;
+"""
+    loops = sass.inner_loops(listing)
+    assert loops == {
+        "_ZN3ntt12_GLOBAL__N_115diag_mul_kernelIjLi4ELi512ELi2EEEvPKT_PS2_jii": [
+            {"IMAD": 2, "IADD3": 1, "ISETP.GE.AND": 1, "BRA": 1}],
+        "none_u32": []}
+    assert sass.multiplies(loops[next(iter(loops))][0]) == 2
+    assert "diag_mul_kernelIjLi4E" in next(iter(loops))
+    assert sass.PROBE_LOOPS["diag_mul_u32"][0] == "diag_mul_kernelIjLi4E"
 
 
 def test_code_cmp_reads_text_sections_and_ptxas_reports():
