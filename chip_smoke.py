@@ -263,6 +263,19 @@ Phases, each of which raises on failure (nothing is caught):
    ``torch._int_mm``'s four calls on the same int8 operands as a yardstick
    of the tensor-core part alone, and the mxu forward, inverse and product
    beside K1 (word 32, m14) and 'auto'.
+32. the bench (``python -m ntt_tpu_torch bench``, subprocesses from the
+   repository's root): the headline (m14, ``bench_params(14, 62)``, batch
+   128, ``--budget-s 120 --reps 3``) must exit 0 with exactly one JSON
+   line, no ``degraded``, a value above 0 within 10 % of 128 over the
+   same call's device time from a CUDA graph in this process, and a
+   ``vs_baseline``; ``--suite --only`` one body of each kernel family at
+   each width (``BENCH_SUITE``; q62 and ``NttParams.generate(27, 14)``,
+   the table in a temporary directory) must time every body it names;
+   then, with every launch count set to 0, one call of each of those
+   bodies in this process (batch 8) equals its plain version on the CPU,
+   bit for bit, each body's launches are printed, and together they must
+   launch K1-K11 at both widths (K10 at words 32 and 64, K11 both
+   contracts).
 
 Every phase line is followed by the wall clock the phase took, and the
 times phase ends with the wall clock of every phase.
@@ -288,6 +301,7 @@ import re
 import socket
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -422,6 +436,17 @@ N_MULTS = 42  # the multiplies of diag_mul on each 32-bit half (probes.N_MULTS)
 # K11's epilogue a word: six Shoup products of the Horner chain, Barrett's two
 # multiplies, the Shoup product by the scale
 LIMB_EPILOGUE_MULS = 6 * SHOUP_MULS[32] + 2 + SHOUP_MULS[32]
+# the bench phase: the headline run's arguments (m14, bench_params(14, 62),
+# batch 128 by default), and one suite body of each kernel family at each
+# width (by q_bits): K1 pallas, K2 inv-radix4x4, K3-K7 he-ctmul, K4 / K8 / K1
+# sixstep-rec, K9 radix2, K10 radix4 (words 32 and 64), K11 mxu
+BENCH_ARGS = ("--budget-s", "120", "--reps", "3")
+BENCH_SUITE = {62: ("pallas-u64", "inv-radix4x4-u64", "he-ctmul-u64", "sixstep-rec-u64",
+                    "radix2-u64"),
+               27: ("pallas-u32", "inv-radix4x4-u32", "he-ctmul-u32", "sixstep-rec-u32",
+                    "radix2-u32", "radix4-u32", "radix4-u64", "mxu")}
+BENCH_CHECK_BATCH = 8  # the suite bodies against their plain versions on the CPU
+BENCH_TOLERANCE = 0.10  # the bench's value against the in-process graph time
 
 
 def every_m_batch(m: int) -> int:
@@ -622,8 +647,8 @@ def main() -> int:
         print(f"ntt_tpu_torch/ not found beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from ntt_tpu_torch import (FIXTURES, NttParams, api, bench_params, code_cmp, lab, native,
-                               rns, sass)
+    from ntt_tpu_torch import (FIXTURES, NttParams, api, bench, bench_params, code_cmp, lab,
+                               native, rns, sass)
     from ntt_tpu_torch import __main__ as cli
     from ntt_tpu_torch import modmath as mm
     from ntt_tpu_torch.kernels import (fused, fused_lab, mxu, pointwise, probes, radix2, radix4,
@@ -2836,6 +2861,86 @@ def main() -> int:
         del x, small
     table.extend(sol_rows)
     table.extend(dist_rows)
+
+    phase(f"the bench: python -m ntt_tpu_torch bench {' '.join(BENCH_ARGS)} and --suite --only "
+          f"one body a kernel family at q62 and q27 (subprocesses); the headline against a CUDA "
+          f"graph of the same call; the suite bodies (batch {BENCH_CHECK_BATCH}) against their "
+          "plain versions, every launch count set to 0 before them")
+
+    def bench_cli(*extra):
+        """(the JSON line, stderr) of one bench run, which must exit 0 with
+        exactly one line and no degraded."""
+        out = subprocess.run([sys.executable, "-m", "ntt_tpu_torch", "bench", *BENCH_ARGS,
+                              *extra], cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = [json.loads(ln) for ln in out.stdout.splitlines() if ln.startswith("{")]
+        if out.returncode != 0 or len(lines) != 1 or "degraded" in lines[0] \
+                or not lines[0]["value"] > 0 or lines[0]["vs_baseline"] is None:
+            print(out.stdout[-4000:], out.stderr[-8000:], flush=True)
+            raise AssertionError(f"bench {' '.join(extra)}: exit {out.returncode}, JSON lines "
+                                 f"{lines}")
+        return lines[0], out.stderr
+
+    line, err = bench_cli()
+    for ln in err.splitlines():
+        if ln.startswith(("bench:", "roofline:")):
+            print(f"  {ln}", flush=True)
+    p = bench_params(14, 62)
+    x = bench.bench_input(p, 128, dev)
+    g_us = lab.cuda_us(bench.headline_call(p, None, dev), x, 5, 200)
+    want = 128 / g_us * 1e6
+    print(f"  headline line {json.dumps(line)}; api.fwd_ntt m14 q62 batch 128 from a CUDA graph "
+          f"of 200 calls in this process: {g_us:.1f} us, {want:,.1f} transforms/s "
+          f"({line['value'] / want - 1:+.1%}; {smi})", flush=True)
+    if abs(line["value"] / want - 1) > BENCH_TOLERANCE:
+        raise AssertionError(f"the bench's value {line['value']} is not within "
+                             f"{BENCH_TOLERANCE:.0%} of {want:.1f}")
+    del x
+    with tempfile.TemporaryDirectory() as tmp:
+        for bits, names in BENCH_SUITE.items():
+            path = pathlib.Path(tmp) / f"suite_q{bits}.json"
+            line, err = bench_cli("--q-bits", str(bits), "--suite", "--suite-json", str(path),
+                                  "--only", ",".join(names))
+            rows = json.loads(path.read_text())["variants"]
+            slow = {n: r for n, r in rows.items() if not r.get("us_per_transform", 0) > 0}
+            if sorted(rows) != sorted(names) or slow:
+                raise AssertionError(f"suite q{bits}: rows {sorted(rows)}, not timed {slow}")
+            print(f"  suite q{bits} m14 batch 128 ({smi}): " + ", ".join(
+                f"{n} {r['us_per_transform']} us" for n, r in sorted(rows.items()))
+                + f"; its headline {json.dumps(line)}", flush=True)
+    suite_counts = (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES, rec.LAUNCHES,
+                    radix2.LAUNCHES, radix4.LAUNCHES, mxu.LAUNCHES)
+    calls = {}
+    for bits, names in BENCH_SUITE.items():
+        p = bench_params(14, bits)
+        bodies = bench.suite_bodies(get_plan(p))
+        for name in names:
+            if isinstance(bodies[name], str):
+                raise AssertionError(f"suite body {name} refused at q{bits}: {bodies[name]}")
+            fn, word = bodies[name]
+            calls[name] = fn, bench.bench_input(p, BENCH_CHECK_BATCH, dev, wide=word == 64)
+    torch.cuda.synchronize()
+    for counts in suite_counts:
+        for k in counts:
+            counts[k] = 0
+    outs, per_body = {}, {}
+    for name, (fn, x) in calls.items():
+        before = {k: v for c in suite_counts for k, v in c.items()}
+        outs[name] = fn(x)
+        per_body[name] = {k: v - before[k] for c in suite_counts for k, v in c.items()
+                          if v > before[k]}
+    torch.cuda.synchronize()
+    launches8 = {k: v for c in suite_counts for k, v in c.items()}
+    print(f"  launches of each suite body: {json.dumps(per_body)}", flush=True)
+    idle = [k for k, v in launches8.items() if v == 0 and k != "r4_stage_w56"]
+    if idle:
+        raise AssertionError(f"kernels never launched by the suite bodies: {idle}")
+    for name, (fn, x) in calls.items():
+        if not torch.equal(outs[name].cpu(), fn(x.cpu())):
+            raise AssertionError(f"suite body {name}: differs from its plain version")
+    print(f"  {', '.join(calls)}: one call each on the card equals its plain version on the "
+          f"CPU (m14 batch {BENCH_CHECK_BATCH}); together they launched {launches8}", flush=True)
+    del calls, outs
+    torch.cuda.empty_cache()
     print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
     bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "ntt_tpu"))

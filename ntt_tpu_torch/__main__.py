@@ -1,12 +1,14 @@
-"""CLI: the reference's correctness sweep over the port's variants.
+"""CLI: the reference's correctness sweep over the port's variants, and the bench.
 
     python -m ntt_tpu_torch list                   # variant registry + capabilities
     python -m ntt_tpu_torch correctness            # oracle sweep (fast fixtures)
     python -m ntt_tpu_torch correctness --full     # all 19 reference fixtures
     python -m ntt_tpu_torch correctness --device cpu   # the plain PyTorch path
+    python -m ntt_tpu_torch bench [--] [ARGS]      # ntt_tpu_torch.bench: one JSON line
 
-The counterpart of ``ntt_tpu/__main__.py`` (``list`` and ``correctness``;
-its ``bench`` waits for the port's benchmark).  Per fixture, every
+The counterpart of ``ntt_tpu/__main__.py``.  ``bench`` hands its
+arguments (a leading ``--`` dropped) to ``ntt_tpu_torch.bench.main``;
+see that module for the JSON line.  In ``correctness``, per fixture, every
 variant capable at its q runs the strict forward, which after
 ``output_layout(...).fix`` must equal the oracle, and the inverse round
 trip; one ``OK`` / ``FWD-MISMATCH`` / ``ROUNDTRIP-FAIL`` line each, then
@@ -84,7 +86,18 @@ def cmd_correctness(args) -> int:
     return 1 if failures else 0
 
 
+def cmd_bench(rest: list[str]) -> int:
+    from ntt_tpu_torch import bench
+
+    return bench.main(rest[1:] if rest[:1] == ["--"] else rest)
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["bench"]:
+        # every argument after it is the bench's; argparse's REMAINDER would
+        # refuse one that starts with '-'
+        return cmd_bench(argv[1:])
     ap = argparse.ArgumentParser(prog="python -m ntt_tpu_torch")
     sub = ap.add_subparsers(dest="cmd", required=True)
     sub.add_parser("list")
@@ -96,6 +109,7 @@ def main(argv=None) -> int:
     c.add_argument("--skip", default="", help="comma-separated variants to skip")
     c.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="where the variants run (cpu: their plain PyTorch versions)")
+    sub.add_parser("bench", help="time the API: python -m ntt_tpu_torch bench --help")
     args = ap.parse_args(argv)
     return {"list": cmd_list, "correctness": cmd_correctness}[args.cmd](args)
 
