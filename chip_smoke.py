@@ -449,6 +449,20 @@ BENCH_CHECK_BATCH = 8  # the suite bodies against their plain versions on the CP
 BENCH_TOLERANCE = 0.10  # the bench's value against the in-process graph time
 
 
+def launch_counts(launches, kernels, widths=("u32", "u64")) -> dict[str, int]:
+    """{<kernel>_<width>: launches} of each kernel at each width, read from
+    the launch registry ``launches`` (``ntt_tpu_torch.trace.LAUNCHES``); 0
+    where none ran."""
+    return {f"{k}_{w}": launches[f"{k}_{w}"] for k in kernels for w in widths}
+
+
+def limb_launches(launches) -> dict[str, int]:
+    """K11's launches by contract, ``limb_matmul_<contract>``, the scaled
+    launcher's counted in its contract's."""
+    return {f"limb_matmul_{c}": launches[f"limb_matmul_{c}"] + launches[f"limb_matmul_{c}_scaled"]
+            for c in ("left", "right")}
+
+
 def every_m_batch(m: int) -> int:
     """The sweeps' batch at m: BATCH_EVERY_M, 1 from LARGE_M up (the plain
     versions they are held against take most of the script's time there)."""
@@ -648,7 +662,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from ntt_tpu_torch import (FIXTURES, NttParams, api, bench, bench_params, code_cmp, lab,
-                               native, rns, sass)
+                               native, rns, sass, trace)
     from ntt_tpu_torch import __main__ as cli
     from ntt_tpu_torch import modmath as mm
     from ntt_tpu_torch.kernels import (fused, fused_lab, mxu, pointwise, probes, radix2, radix4,
@@ -657,6 +671,16 @@ def main() -> int:
     from ntt_tpu_torch.kernels.elems import pick_ops
     from ntt_tpu_torch.params import dist_params, find_solinas_ntt_prime
     from ntt_tpu_torch.plan import get_plan
+
+    launches_of = trace.LAUNCHES  # the one launch registry, keyed by launcher name
+    transform_kernels = ("fwd_fused", "inv_fused", "mul_mod", *twopass.KERNELS, "twist_mul")
+
+    def shoup_launches() -> dict[str, int]:
+        """The Shoup launchers of the main path and the variant families at
+        each width (K10 also at word 56), and K11's launches by contract."""
+        return {**launch_counts(launches_of, transform_kernels + ("r2_stage", "r4_stage")),
+                **launch_counts(launches_of, ("r4_stage",), ("w56",)),
+                **limb_launches(launches_of)}
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -891,9 +915,7 @@ def main() -> int:
     rt = {case: rand(params[case], BATCH_CHECK) for case in CASES}
     fx = {i: rand(FIXTURES[i], 4) for i in FIXTURES_WITHIN}
     torch.cuda.synchronize()
-    for counts in (fused.LAUNCHES, pointwise.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    launches_of.clear()
     prod, back = {}, {}
     for case in CASES:
         p = params[case]
@@ -902,7 +924,7 @@ def main() -> int:
     fwd_fx = {i: api.fwd_ntt(a, FIXTURES[i]) for i, a in fx.items()}
     back_fx = {i: api.inv_ntt(f, FIXTURES[i]) for i, f in fwd_fx.items()}
     torch.cuda.synchronize()
-    launches = {**fused.LAUNCHES, **pointwise.LAUNCHES}
+    launches = launch_counts(launches_of, ("fwd_fused", "inv_fused", "mul_mod"))
     print(f"  launch counts of the main path: {launches}", flush=True)
     idle = [k for k, v in launches.items() if v == 0]
     if idle:
@@ -1040,21 +1062,19 @@ def main() -> int:
     rt2 = {s: rand(tp_params[s], b) for s, b in TWO_PASS if not s.startswith("m16")}
     fx2 = {i: rand(FIXTURES[i], 4) for i in FIXTURES_BEYOND}
     torch.cuda.synchronize()
-    for counts in (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES):
-        for k in counts:
-            counts[k] = 0
+    launches_of.clear()
     prod2 = {s: api.negacyclic_mul(x, y, tp_params[s]) for s, (x, y) in he2.items()}
     back2 = {s: api.inv_ntt(api.fwd_ntt(a, tp_params[s]), tp_params[s])
              for s, a in rt2.items()}
     fwd2 = {i: api.fwd_ntt(a, FIXTURES[i]) for i, a in fx2.items()}
     back_fx = {i: api.inv_ntt(f, FIXTURES[i]) for i, f in fwd2.items()}
     torch.cuda.synchronize()
-    launches2 = {**twopass.LAUNCHES, **pointwise.LAUNCHES}
+    launches2 = launch_counts(launches_of, (*twopass.KERNELS, "mul_mod"))
     print(f"  launch counts of this path: {launches2}", flush=True)
     idle = [k for k, v in launches2.items() if v == 0]
     if idle:
         raise AssertionError(f"kernels never launched by the main path: {idle}")
-    if any(fused.LAUNCHES.values()):
+    if any(launch_counts(launches_of, ("fwd_fused", "inv_fused")).values()):
         raise AssertionError("the path beyond one block launched a fused kernel")
     for s, (x, y) in he2.items():
         p = tp_params[s]
@@ -1132,10 +1152,7 @@ def main() -> int:
            for _ in range(2)]
     tx_dev = (tower.from_host(tx[0]), tower.from_host(tx[1]))
     torch.cuda.synchronize()
-    rec_counts = (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES, rec.LAUNCHES)
-    for counts in rec_counts:
-        for k in counts:
-            counts[k] = 0
+    launches_of.clear()
     fwd3 = {k: api.fwd_ntt(x, p, "sixstep-rec") for k, (p, x) in rt3.items()}
     back3 = {k: api.inv_ntt(fwd3[k], rt3[k][0], "sixstep-rec") for k in rt3}
     fwd_auto = api.fwd_ntt(auto_x, auto_p)
@@ -1145,7 +1162,7 @@ def main() -> int:
     tprod = tower.negacyclic(*tx_dev)
     tbig = tower.negacyclic_mul_bigint(*big)
     torch.cuda.synchronize()
-    launches4 = {k: v for c in rec_counts for k, v in c.items()}
+    launches4 = launch_counts(launches_of, transform_kernels)
     print(f"  launch counts of this path: {launches4}", flush=True)
     needed = [f"{k}_u{w}" for k in ("twist_mul", "fwd_cols", "inv_cols", "fwd_fused",
                                     "inv_fused", "mul_mod") for w in (64, 32)]
@@ -1302,17 +1319,14 @@ def main() -> int:
 
     phase("lab path: python -m ntt_tpu_torch.lab --cases both --no-time (m14 batch 512)")
     torch.cuda.synchronize()
-    all_counts = (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES, fused_lab.LAUNCHES,
-                  probes.LAUNCHES)
-    for counts in all_counts:
-        for k in counts:
-            counts[k] = 0
+    launches_of.clear()
     records = lab.main(["--cases", "both", "--no-time"])
     torch.cuda.synchronize()
-    launches3 = {**fused_lab.LAUNCHES, **probes.LAUNCHES}
-    print(f"  launch counts of the lab path: {launches3}; K1 {fused.LAUNCHES}", flush=True)
+    launches3 = launch_counts(launches_of, fused_lab.KERNELS + probes.PROBES)
+    print(f"  launch counts of the lab path: {launches3}; K1 "
+          f"{launch_counts(launches_of, ('fwd_fused', 'inv_fused'))}", flush=True)
     idle = [k for k, v in launches3.items() if v == 0]
-    idle += [k for k in ("fwd_fused_u32", "fwd_fused_u64") if fused.LAUNCHES[k] == 0]
+    idle += [k for k in ("fwd_fused_u32", "fwd_fused_u64") if launches_of[k] == 0]
     if idle:
         raise AssertionError(f"kernels never launched by the lab path: {idle}")
     if len(records) != 2 * len(lab.CANDIDATES) or not all(r["exact"] for r in records):
@@ -1396,10 +1410,7 @@ def main() -> int:
             raise AssertionError(f"q {p.q:#x} is not of the Solinas form")
         return p
 
-    sol_counts = (fused.SOLINAS_LAUNCHES, twopass.SOLINAS_LAUNCHES, rec.SOLINAS_LAUNCHES,
-                  radix2.SOLINAS_LAUNCHES, radix4.SOLINAS_LAUNCHES)
-    shoup_counts = (fused.LAUNCHES, twopass.LAUNCHES, rec.LAUNCHES, radix2.LAUNCHES,
-                    radix4.LAUNCHES)
+    switched = ("fwd_fused", "inv_fused", *twopass.KERNELS, "twist_mul", "r2_stage", "r4_stage")
 
     def solinas_slice():
         """Phases 18-27 (24-25 and 27, the demo, the fuzz draws and the product
@@ -1543,21 +1554,22 @@ def main() -> int:
                         ("q27 m10", "sixstep"), ("q62 m14", "radix2"), ("q60 m14", "radix4"),
                         ("q27 m10", "radix2-u32"), ("q27 m10", "radix4-u32"))
             torch.cuda.synchronize()
-            for counts in sol_counts + shoup_counts + (pointwise.LAUNCHES, mxu.LAUNCHES):
-                for k in counts:
-                    counts[k] = 0
+            launches_of.clear()
             prod = {(k, v): api.negacyclic_mul(he[k][1], he[k][2], he[k][0], variant=v)
                     for k, v in products}
             hprod = ctx.negacyclic(he["q62 m14"][1], he["q62 m14"][2])
             back = {(k, v): api.inv_ntt(api.fwd_ntt(x, p, v), p, v)
                     for k, (p, x) in rts.items() for v in ("auto", "sixstep-rec")}
             torch.cuda.synchronize()
-        launches = {k: v for c in sol_counts for k, v in c.items()}
-        shoup = {k: v for c in shoup_counts for k, v in c.items() if v}
+        launches = launch_counts(launches_of, [f"{k}_solinas" for k in switched])
+        shoup = {k: v for k, v in {**launch_counts(launches_of, switched),
+                                   **launch_counts(launches_of, ("r4_stage",), ("w56",))}.items()
+                 if v}
         print(f"  Solinas launch counts of this path: {launches}; Shoup launches of the same "
-              f"kernels: {shoup or 'none'}; K3 {pointwise.LAUNCHES}", flush=True)
+              f"kernels: {shoup or 'none'}; K3 {launch_counts(launches_of, ('mul_mod',))}",
+              flush=True)
         idle = [k for k, v in launches.items() if v == 0]
-        if idle or shoup or pointwise.LAUNCHES["mul_mod_u64"] == 0:
+        if idle or shoup or launches_of["mul_mod_u64"] == 0:
             raise AssertionError(f"Solinas kernels never launched by the path: {idle}; Shoup "
                                  f"launches on it: {shoup}")
         for (k, v), got in prod.items():
@@ -1767,19 +1779,15 @@ def main() -> int:
 
         phase("the lab path under the switch: python -m ntt_tpu_torch.lab --cases both "
               "--no-time at m14 and at m10, every launch count set to 0 before it")
-        lab_counts = (fused_lab.LAUNCHES, fused_lab.SOLINAS_LAUNCHES, probes.LAUNCHES,
-                      probes.SOLINAS_LAUNCHES, fused.LAUNCHES, fused.SOLINAS_LAUNCHES)
         lab_launches = collections.Counter()
         lab_kernels = fused_lab.KERNELS + ("diag_math",)
         for word, p in lab_sol.items():
             torch.cuda.synchronize()
-            for counts in lab_counts:
-                for k in counts:
-                    counts[k] = 0
+            launches_of.clear()
             with switch():
                 records = lab.main(["--cases", "both", "--no-time", "--m", str(p.m)])
             torch.cuda.synchronize()
-            got = {k: v for c in lab_counts for k, v in c.items() if v}
+            got = {k: v for k, v in launches_of.items() if v}
             print(f"  m{p.m}: launch counts {got}", flush=True)
             if len(records) != 2 * len(lab.CANDIDATES) or not all(r["exact"] for r in records):
                 raise AssertionError(f"the lab path at m{p.m} did not check every candidate")
@@ -1903,14 +1911,14 @@ def main() -> int:
             print(f"  q {q:#x} (e, k) {form}, word {word}: {', '.join(sets)} equal to plain",
                   flush=True)
         torch.cuda.synchronize()
-        print(f"  launches of the check: {pointwise.CHECK_LAUNCHES}", flush=True)
+        print(f"  launches of the check: {launch_counts(launches_of, ('solinas_mul',))}",
+              flush=True)
         return rows
 
     phase(f"reference-family variants vs plain: every m from each one's least to "
           f"{FAMILY_LAST_M} (batch {BATCH_EVERY_M}), and "
           + ", ".join(f"m{m} batch {b}" for m, b in FAMILY_LARGE) + " at word 64")
-    for counts in (radix2.MODES, radix4.MODES):
-        counts.clear()
+    before_modes = launches_of.copy()
     for name, bits in FAMILY:
         v = api.get_variant(name)
         for m in range(v.min_m, FAMILY_LAST_M + 1):
@@ -1928,7 +1936,8 @@ def main() -> int:
               f"to sixstep's, round trip exact at m{v.min_m}-m{FAMILY_LAST_M} batch "
               f"{BATCH_EVERY_M}" + "".join(f", m{m} batch {b}" for m, b in large), flush=True)
         torch.cuda.empty_cache()
-    modes = sorted(set(radix2.MODES) | set(radix4.MODES))
+    modes = sorted(tuple(k.split("/")[1:]) for k in launches_of - before_modes
+                   if k.startswith("mode/"))
     print(f"  K9 / K10 (entry point, mode, twiddle view) run: {modes}", flush=True)
     want_modes = {("r2_stage_u64", k, "std") for k in ("fwd", "bkw", "final", "seal_final")}
     want_modes |= {("r2_stage_u64", "fwd", v) for v in ("hexl", "r2_16", "r4r2")}
@@ -1977,15 +1986,14 @@ def main() -> int:
             he5[bits] = (p, rand(p, BATCH_HE), rand(p, BATCH_HE))
     want5 = {bits: api.negacyclic_mul(x, y, p) for bits, (p, x, y) in he5.items()}
     torch.cuda.synchronize()
-    family_counts = (radix2.LAUNCHES, radix4.LAUNCHES, fused.LAUNCHES, pointwise.LAUNCHES)
-    for counts in family_counts:
-        for k in counts:
-            counts[k] = 0
+    launches_of.clear()
     prod5 = {(name, bits): api.negacyclic_mul(he5[bits][1], he5[bits][2], he5[bits][0],
                                               variant=name)
              for name, bits in FAMILY_HE}
     torch.cuda.synchronize()
-    launches5 = {k: v for c in family_counts for k, v in c.items()}
+    launches5 = {**launch_counts(launches_of, ("r2_stage", "r4_stage")),
+                 **launch_counts(launches_of, ("r4_stage",), ("w56",)),
+                 **launch_counts(launches_of, ("fwd_fused", "inv_fused", "mul_mod"))}
     print(f"  launch counts of this path: {launches5}", flush=True)
     idle = [k for k in STAGE_KERNELS + ("fwd_fused_u64", "inv_fused_u64") if launches5[k] == 0]
     if idle:
@@ -2061,16 +2069,13 @@ def main() -> int:
         get_plan(p).device_tables(dev).mxu(False)
         get_plan(p).device_tables(dev).mxu(True)
     torch.cuda.synchronize()
-    mxu_counts = (mxu.LAUNCHES, pointwise.LAUNCHES)
-    for counts in mxu_counts:
-        for k in counts:
-            counts[k] = 0
+    launches_of.clear()
     fwd6 = {m: api.fwd_ntt(x, mx_params[m], "mxu") for m, x in mx_in.items()}
     lazy6 = {m: api.fwd_ntt(x, mx_params[m], "mxu", lazy=True) for m, x in mx_in.items()}
     back6 = {m: api.inv_ntt(f, mx_params[m], "mxu") for m, f in fwd6.items()}
     prod6 = api.negacyclic_mul(*he6, mp14, variant="mxu")
     torch.cuda.synchronize()
-    launches6 = {k: v for c in mxu_counts for k, v in c.items()}
+    launches6 = {**limb_launches(launches_of), **launch_counts(launches_of, ("mul_mod",))}
     print(f"  launch counts of this path: {launches6}", flush=True)
     idle = [k for k in LIMB_KERNELS + ("mul_mod_u32",) if launches6[k] == 0]
     if idle:
@@ -2100,12 +2105,8 @@ def main() -> int:
     if rc != 0 or listed != sorted(api.variants()):
         raise AssertionError(f"list printed {listed}, the registry has {sorted(api.variants())}")
     print(f"  list: {len(listed)} variants, the registry's", flush=True)
-    cli_counts = (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES, rec.LAUNCHES,
-                  radix2.LAUNCHES, radix4.LAUNCHES, mxu.LAUNCHES)
     torch.cuda.synchronize()
-    for counts in cli_counts:
-        for k in counts:
-            counts[k] = 0
+    launches_of.clear()
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(["correctness", "--full", "--device", "cuda", "--seed", str(seed)])
@@ -2116,7 +2117,7 @@ def main() -> int:
     if rc != 0 or lines[-1] != "FAILURES: 0" or set(tally) - {"OK", "SKIP"}:
         print("\n".join(ln for ln in lines if " OK " not in ln), flush=True)
         raise AssertionError(f"correctness --full --device cuda: exit {rc}, {dict(tally)}")
-    launches7 = {k: v for c in cli_counts for k, v in c.items()}
+    launches7 = shoup_launches()
     print(f"  correctness --full --device cuda: {dict(tally)} over the 19 fixtures "
           f"({', '.join(sorted({r.group(1) for r in rows if r.group(2) == 'SKIP'}))} refused "
           f"beyond one block), {lines[-1]}; launch counts {launches7}", flush=True)
@@ -2226,11 +2227,11 @@ def main() -> int:
             plan, ops = get_plan(p), pick_ops(p.q)
             tabs = plan.device_tables(dev)
             n1, n2, dl = shard_logs(plan, 8)
-            before = dict(twopass.SOLINAS_LAUNCHES)
+            k5_k7 = launch_counts(launches_of, [f"{k}_solinas" for k in twopass.KERNELS])
             check_row_shard(p, plan, ops, tabs, 16, n1, n2, 3 << (n1 - dl), n1 - dl,
                             f"Solinas q {p.q:#x} m20 b16 D8 rows [{3 << (n1 - dl)}, "
                             f"+2^{n1 - dl})", "solinas_u64", quiet=False)
-            ran = {k: v - before[k] for k, v in twopass.SOLINAS_LAUNCHES.items() if v > before[k]}
+            ran = {k: launches_of[k] - n for k, n in k5_k7.items() if launches_of[k] > n}
             if set(ran) != {"fwd_rows_solinas_u64", "inv_rows_solinas_u64"}:
                 raise AssertionError(f"the Solinas shard check launched {ran}")
 
@@ -2243,10 +2244,7 @@ def main() -> int:
         mesh = dist.default_mesh(DIST_SHARDS, device=dev)
         ins = {s: (rand_dev(p, b), rand_dev(p, b)) for s, (p, b) in dist_cases.items()}
         torch.cuda.synchronize()
-        for counts in (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES,
-                       twopass.SHARD_LAUNCHES, rec.LAUNCHES, rec.SHARD_LAUNCHES):
-            for k in counts:
-                counts[k] = 0
+        launches_of.clear()
         outs = {}
         for s, (p, b) in dist_cases.items():
             x, y = ins[s]
@@ -2264,9 +2262,9 @@ def main() -> int:
             if b % DIST_SHARDS == 0:
                 outs[s]["batch"] = dist.batch_parallel_fwd(x, p, mesh)
         torch.cuda.synchronize()
-        launches8 = {k: v for c in (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES,
-                                     rec.LAUNCHES) for k, v in c.items() if v}
-        shard8 = {**twopass.SHARD_LAUNCHES, **rec.SHARD_LAUNCHES}
+        launches8 = {k: v for k, v in launch_counts(launches_of, transform_kernels).items() if v}
+        shard8 = {k: launches_of[f"shard/{k}"] for k in launch_counts(
+            launches_of, (*twopass.KERNELS, "twist_mul"))}
         print(f"  launch counts of this path: {launches8}; on shards: "
               f"{ {k: v for k, v in shard8.items() if v} }", flush=True)
         need = [f"{k}_u{w}" for k in ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols",
@@ -2313,9 +2311,9 @@ def main() -> int:
             world = dist.default_mesh()
             p, b = dist_cases["m20-q62"]
             x = rand_dev(p, b)
-            before = twopass.LAUNCHES["fwd_rows_u64"]
+            before = launches_of["fwd_rows_u64"]
             got = dist.dist_fwd_ntt(x, p, world)
-            if twopass.LAUNCHES["fwd_rows_u64"] == before:
+            if launches_of["fwd_rows_u64"] == before:
                 raise AssertionError("the NCCL world's forward launched no K5")
             if not torch.equal(got, api.fwd_ntt(x, p, "sixstep")):
                 raise AssertionError("dist_fwd_ntt through a 1-rank NCCL world differs")
@@ -2907,8 +2905,6 @@ def main() -> int:
             print(f"  suite q{bits} m14 batch 128 ({smi}): " + ", ".join(
                 f"{n} {r['us_per_transform']} us" for n, r in sorted(rows.items()))
                 + f"; its headline {json.dumps(line)}", flush=True)
-    suite_counts = (fused.LAUNCHES, pointwise.LAUNCHES, twopass.LAUNCHES, rec.LAUNCHES,
-                    radix2.LAUNCHES, radix4.LAUNCHES, mxu.LAUNCHES)
     calls = {}
     for bits, names in BENCH_SUITE.items():
         p = bench_params(14, bits)
@@ -2919,17 +2915,14 @@ def main() -> int:
             fn, word = bodies[name]
             calls[name] = fn, bench.bench_input(p, BENCH_CHECK_BATCH, dev, wide=word == 64)
     torch.cuda.synchronize()
-    for counts in suite_counts:
-        for k in counts:
-            counts[k] = 0
+    launches_of.clear()
     outs, per_body = {}, {}
     for name, (fn, x) in calls.items():
-        before = {k: v for c in suite_counts for k, v in c.items()}
+        before = shoup_launches()
         outs[name] = fn(x)
-        per_body[name] = {k: v - before[k] for c in suite_counts for k, v in c.items()
-                          if v > before[k]}
+        per_body[name] = {k: v - before[k] for k, v in shoup_launches().items() if v > before[k]}
     torch.cuda.synchronize()
-    launches8 = {k: v for c in suite_counts for k, v in c.items()}
+    launches8 = shoup_launches()
     print(f"  launches of each suite body: {json.dumps(per_body)}", flush=True)
     idle = [k for k, v in launches8.items() if v == 0 and k != "r4_stage_w56"]
     if idle:

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ntt_tpu_torch import modmath as mm
+from ntt_tpu_torch import trace
 from ntt_tpu_torch.kernels import (fused, layouts, mixed, mxu, pointwise, radix2, radix4, rec,
                                    sixstep, twopass)
 from ntt_tpu_torch.kernels.elems import pick_ops
@@ -574,18 +575,22 @@ class DeviceNtt:
                          for i in range(0, batch + pad, tile)])
         return out[:batch] if pad else out
 
-    # device ops (tensor -> tensor)
+    # device ops (tensor -> tensor), each call an op span (trace.py)
+    @trace.traced("op")
     def fwd(self, t: torch.Tensor) -> torch.Tensor:
         v, plan = self._variant, self.plan
         return self._tiled(lambda x: v.fwd(plan, x, self.lazy), self._check(t))
 
+    @trace.traced("op")
     def inv(self, t: torch.Tensor) -> torch.Tensor:
         v, plan = self._variant, self.plan
         return self._tiled(lambda x: v.inv(plan, x), self._check(t))
 
+    @trace.traced("op")
     def pointwise(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return pointwise.mul_mod(self._check(a), self._check(b), self.plan.q)
 
+    @trace.traced("op")
     def negacyclic(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """The full product: both forwards, the pointwise product and the
         inverse, a tile at a time where the handle tiles; strict output."""

@@ -25,14 +25,15 @@ round.  Design notes are in ``csrc/ntt_fused.cu``.
 
 A wrapper runs the plain PyTorch version (``kernels/sixstep.py``) for a
 tensor on the CPU and the kernel for a tensor on a CUDA device; it never
-falls back from one to the other.  ``LAUNCHES`` counts the kernel launches
-per kernel and width.
+falls back from one to the other.  Each wrapper call is a kernel span
+(``trace.py``), and ``native.launch`` counts each launch in
+``trace.LAUNCHES``.
 
 Under the NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``), at a q of
 the Solinas form of the plan's word (``modmath.solinas_args``), a wrapper
 launches the kernel's Solinas instantiation (``csrc/modarith.cuh``'s
-SolinasRed), which reads no w_con table, and counts it in
-``SOLINAS_LAUNCHES``; the plain versions follow the same switch.
+SolinasRed), which reads no w_con table; the plain versions follow the
+same switch.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from __future__ import annotations
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch import native
+from ntt_tpu_torch import native, trace
 from ntt_tpu_torch.kernels import sixstep
 from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.plan import NttPlan
@@ -48,10 +49,6 @@ from ntt_tpu_torch.plan import NttPlan
 # Dynamic shared memory a block can use on Hopper: 227 KB (NVIDIA's Hopper
 # architecture documentation), above 48 KB only after cudaFuncSetAttribute.
 SMEM_BYTES = 232448
-
-LAUNCHES = {"fwd_fused_u32": 0, "fwd_fused_u64": 0, "inv_fused_u32": 0,
-            "inv_fused_u64": 0}
-SOLINAS_LAUNCHES = {f"{k}_solinas_u{w}": 0 for k in ("fwd_fused", "inv_fused") for w in (32, 64)}
 
 
 def max_logn(word: int) -> int:
@@ -83,6 +80,7 @@ def _cuda_batch(a: torch.Tensor, plan: NttPlan) -> int:
     return cuda_batch(a, plan)
 
 
+@trace.traced("kernel")
 def fwd_fused(a: torch.Tensor, plan: NttPlan, strict: bool = True) -> torch.Tensor:
     """Forward NTT of (..., N): natural order in, bit-reversed out; output
     < q with strict, else the lazy Harvey representatives < 4q."""
@@ -100,10 +98,10 @@ def fwd_fused(a: torch.Tensor, plan: NttPlan, strict: bool = True) -> torch.Tens
         native.launch(name, a.data_ptr(), out.data_ptr(), tabs.w.data_ptr(),
                       None if sol else tabs.w_con.data_ptr(), plan.q, batch, plan.m,
                       int(strict), *(sol or ()), native.stream(a.device))
-    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
     return out
 
 
+@trace.traced("kernel")
 def inv_fused(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
     """Inverse NTT of (..., N): bit-reversed in, natural out, strict."""
     tabs = plan.device_tables(a.device)
@@ -124,5 +122,4 @@ def inv_fused(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
                       None if sol else tabs.w_inv_con.data_ptr(), plan.q, n_inv, n_inv_con,
                       f_tmp, f_con & mask, f_con >> plan.word, batch, plan.m, *(sol or ()),
                       native.stream(a.device))
-    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
     return out

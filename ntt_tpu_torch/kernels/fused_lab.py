@@ -39,14 +39,16 @@ refuse, on the card, an N beyond one block's shared memory
 
 A wrapper runs the plain version for a tensor on the CPU and the kernel
 for a tensor on a CUDA device; it never falls back from one to the other.
-``LAUNCHES`` counts the kernel launches per kernel and width.
+Each call is a kernel span (``trace.py``); ``native.launch`` counts each
+launch in ``trace.LAUNCHES``, and L1 again under its rounds' group
+(``fwd_fused_v2_r2`` / ``_r4`` at the width, the lab's names).
 
 Under the NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``, read at every
 call), at a q of the Solinas form of the plan's word
 (``modmath.solinas_args``), every butterfly takes the Solinas product, as
 the JAX lab's ``ops.fwd_bfly`` does there: a wrapper launches the kernel's
 Solinas instantiation (``csrc/modarith.cuh``'s SolinasRed), which reads no
-w_con table, and counts it in ``SOLINAS_LAUNCHES``; the plain version
+w_con table; the plain version
 follows the same switch.
 """
 
@@ -55,15 +57,13 @@ from __future__ import annotations
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch import native
+from ntt_tpu_torch import native, trace
 from ntt_tpu_torch.kernels import sixstep
 from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.kernels.fused import _cuda_batch
 from ntt_tpu_torch.plan import NttPlan
 
 KERNELS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3")
-LAUNCHES = {f"{k}_u{w}": 0 for k in KERNELS for w in (32, 64)}
-SOLINAS_LAUNCHES = {f"{k}_solinas_u{w}": 0 for k in KERNELS for w in (32, 64)}
 
 
 def plain(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
@@ -85,7 +85,8 @@ def plain_inv(a: torch.Tensor, plan: NttPlan) -> torch.Tensor:
 def _launch(name: str, count: str, a: torch.Tensor, plan: NttPlan, n1_log: int,
             *args) -> torch.Tensor:
     """Launch ``name`` at the plan's width, in its Solinas instantiation
-    where the switch takes the plan's q, and count it under ``count``."""
+    where the switch takes the plan's q, and count it again under ``count``
+    where that is another name."""
     batch = _cuda_batch(a, plan)
     out = torch.empty_like(a)
     if batch == 0:
@@ -96,10 +97,12 @@ def _launch(name: str, count: str, a: torch.Tensor, plan: NttPlan, n1_log: int,
         native.launch(native.entry(name, plan.word, sol), a.data_ptr(), out.data_ptr(),
                       tabs.w.data_ptr(), None if sol else tabs.w_con.data_ptr(), plan.q,
                       batch, plan.m, n1_log, *args, *(sol or ()), native.stream(a.device))
-    (SOLINAS_LAUNCHES if sol else LAUNCHES)[native.entry(count, plan.word, sol)] += 1
+    if count != name:
+        trace.LAUNCHES[native.entry(count, plan.word, sol)] += 1
     return out
 
 
+@trace.traced("kernel")
 def fwd_fused_v2(a: torch.Tensor, plan: NttPlan, n1_log: int, group: int = 2,
                  strict: bool = True, keep_transposed: bool = False) -> torch.Tensor:
     """L1: forward NTT of (..., N) in rounds of ``group`` stages; output as
@@ -113,6 +116,7 @@ def fwd_fused_v2(a: torch.Tensor, plan: NttPlan, n1_log: int, group: int = 2,
                    int(strict), int(keep_transposed))
 
 
+@trace.traced("kernel")
 def fwd_fused_v3(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
                  keep_transposed: bool = False) -> torch.Tensor:
     """L2: forward NTT of (..., N) by Stockham stages; outputs as

@@ -36,7 +36,9 @@ float32 or TF32 lose bits beyond 2^24).
 
 The wrapper runs the plain version for a tensor on the CPU and the kernel
 for a tensor on a CUDA device; it never falls back from one to the other.
-``LAUNCHES`` counts the kernel launches per contract.
+Each call is a kernel span (``trace.py``); ``native.launch`` counts each
+launch in ``trace.LAUNCHES`` (``limb_matmul_<contract>``, with
+``_scaled`` where a scale is fused).
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import numpy as np
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch import native
+from ntt_tpu_torch import native, trace
 from ntt_tpu_torch import twiddles as tw
 from ntt_tpu_torch.plan import NttPlan
 
@@ -55,7 +57,6 @@ MAX_K_LOG = 12  # K11 takes K up to 4096 (m24): a diagonal stays below 2^28
 WGMMA_MIN_K = 128  # K11's wgmma body serves K >= 128 (csrc/mxu.cu wg::kMinKLog)
 WGMMA_CHUNK = 128  # ... and folds its diagonals every 128 k (wg::kChunk)
 CONTRACTS = ("left", "right")
-LAUNCHES = {"limb_matmul_left": 0, "limb_matmul_right": 0}
 
 
 def _limbs_of_values(x: torch.Tensor) -> list[torch.Tensor]:
@@ -157,6 +158,7 @@ def limb_matmul_plain(mat_limbs: torch.Tensor, x: torch.Tensor, q: int, contract
     return out.contiguous()
 
 
+@trace.traced("kernel")
 def limb_matmul(mat_limbs: torch.Tensor, x: torch.Tensor, q: int, contract: str,
                 scale=None) -> torch.Tensor:
     """K11: ``limb_matmul_plain``'s function, launched on the card for a
@@ -181,7 +183,6 @@ def limb_matmul(mat_limbs: torch.Tensor, x: torch.Tensor, q: int, contract: str,
     with torch.cuda.device(x.device):
         native.launch(name, mat_limbs.data_ptr(), x.data_ptr(), out.data_ptr(), *s_ptrs, q,
                       batch, k_log, f_log, native.stream(x.device))
-    LAUNCHES[f"limb_matmul_{contract}"] += 1
     return out
 
 

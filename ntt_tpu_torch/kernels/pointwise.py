@@ -7,13 +7,14 @@ it is a kernel (``csrc/pointwise.cu``).  It is bound by device memory:
 three words move per element.  The plain version is ``modmath``'s.
 
 The wrapper runs the plain version for CPU tensors and the kernel for
-CUDA tensors, with no fallback between them; ``LAUNCHES`` counts the
-kernel launches per width.
+CUDA tensors, with no fallback between them; each call is a kernel span
+(``trace.py``), and ``native.launch`` counts each launch in
+``trace.LAUNCHES``.
 
 ``solinas_mul`` is a check, on no transform path: ``csrc/modarith.cuh``'s
 Solinas product alone, element-wise on operands of any value, against
-``modmath.mul_mod_q2_solinas`` / ``mul_mod32_q2_solinas``;
-``CHECK_LAUNCHES`` counts its launches.
+``modmath.mul_mod_q2_solinas`` / ``mul_mod32_q2_solinas``, counted as
+``solinas_mul_u32`` / ``_u64``.
 """
 
 from __future__ import annotations
@@ -21,12 +22,10 @@ from __future__ import annotations
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch import native
-
-LAUNCHES = {"mul_mod_u32": 0, "mul_mod_u64": 0}
-CHECK_LAUNCHES = {"solinas_mul_u32": 0, "solinas_mul_u64": 0}
+from ntt_tpu_torch import native, trace
 
 
+@trace.traced("kernel")
 def mul_mod(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
     """(a * b) mod q element-wise for reps a, b < q of one shape; strict."""
     u32 = mm.uses_u32(q)
@@ -50,10 +49,10 @@ def mul_mod(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
     with torch.cuda.device(a.device):
         native.launch(name, a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), q,
                       native.stream(a.device))
-    LAUNCHES[name] += 1
     return out
 
 
+@trace.traced("kernel")
 def solinas_mul(w: torch.Tensor, t: torch.Tensor, q: int) -> torch.Tensor:
     """The two-fold Solinas product of w and t element-wise at q = 2^e -
     2^k + 1, whatever the switch: word 64 on int64 tensors (``solinas_form``),
@@ -79,5 +78,4 @@ def solinas_mul(w: torch.Tensor, t: torch.Tensor, q: int) -> torch.Tensor:
     with torch.cuda.device(w.device):
         native.launch(name, w.data_ptr(), t.data_ptr(), out.data_ptr(), w.numel(), *form,
                       native.stream(w.device))
-    CHECK_LAUNCHES[name] += 1
     return out

@@ -33,15 +33,14 @@ on either route.
 
 The Pallas probes take a batch that is a multiple of their tile; these take
 any batch.  A wrapper runs the plain version for a tensor on the CPU and the
-kernel for a tensor on a CUDA device, with no fallback; ``LAUNCHES`` counts
-the kernel launches per probe and width.  The design is in
-``csrc/probes.cu``.
+kernel for a tensor on a CUDA device, with no fallback; each call is a
+kernel span (``trace.py``).  The design is in ``csrc/probes.cu``.
 
 Under the NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``, read at every
 call), at a q of the Solinas form of the plan's word, ``diag_math``'s
 butterflies take the Solinas product, as the Pallas probe's do: its wrapper
-launches the SolinasRed instantiation, which reads no w_con, and counts it
-in ``SOLINAS_LAUNCHES``; ``plain_math`` follows the same switch.  The other
+launches the SolinasRed instantiation, which reads no w_con;
+``plain_math`` follows the same switch.  The other
 probes do no mod-q product.
 """
 
@@ -50,16 +49,14 @@ from __future__ import annotations
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch import native
+from ntt_tpu_torch import native, trace
 from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.kernels.fused import max_logn
 from ntt_tpu_torch.plan import NttPlan
 
 MUL_C = 0x9E3779B1
 N_MULTS = 42
-
-LAUNCHES = {f"diag_{k}_u{w}": 0 for k in ("copy", "mul", "math", "moves") for w in (32, 64)}
-SOLINAS_LAUNCHES = {f"diag_math_solinas_u{w}": 0 for w in (32, 64)}
+PROBES = ("diag_copy", "diag_mul", "diag_math", "diag_moves")
 
 
 def _word(a: torch.Tensor) -> int:
@@ -97,7 +94,6 @@ def _launch(probe: str, a: torch.Tensor, *args, solinas=None) -> torch.Tensor:
     with torch.cuda.device(a.device):
         native.launch(name, a.data_ptr(), out.data_ptr(), *args, batch, logn,
                       *(solinas or ()), native.stream(a.device))
-    (SOLINAS_LAUNCHES if solinas else LAUNCHES)[name] += 1
     return out
 
 
@@ -124,6 +120,7 @@ def plain_math(a: torch.Tensor, plan: NttPlan, n_rounds: int) -> torch.Tensor:
     return torch.cat([x, y], dim=-1)
 
 
+@trace.traced("kernel")
 def diag_copy(a: torch.Tensor) -> torch.Tensor:
     """Each polynomial as it is, through K1's load and store."""
     _logn(a)
@@ -132,6 +129,7 @@ def diag_copy(a: torch.Tensor) -> torch.Tensor:
     return _launch("copy", a)
 
 
+@trace.traced("kernel")
 def diag_mul(a: torch.Tensor, n_mults: int = N_MULTS) -> torch.Tensor:
     """``x*c + 1 mod 2^32``, n_mults times (the Pallas probe's N_MULTS
     unless a timing asks for more), on each 32-bit half of each word."""
@@ -141,6 +139,7 @@ def diag_mul(a: torch.Tensor, n_mults: int = N_MULTS) -> torch.Tensor:
     return _launch("mul", a, MUL_C, n_mults)
 
 
+@trace.traced("kernel")
 def diag_math(a: torch.Tensor, plan: NttPlan, n_rounds: int) -> torch.Tensor:
     """n_rounds forward butterflies of (a[i], a[i + N/2]) under w[1]; a of
     the plan's dtype, any N (the plan gives q and the twiddle)."""
@@ -155,6 +154,7 @@ def diag_math(a: torch.Tensor, plan: NttPlan, n_rounds: int) -> torch.Tensor:
                    plan.q, n_rounds, solinas=sol)
 
 
+@trace.traced("kernel")
 def diag_moves(a: torch.Tensor) -> torch.Tensor:
     """K1 with swaps for butterflies: each polynomial reversed."""
     _logn(a)

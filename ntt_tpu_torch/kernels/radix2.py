@@ -36,16 +36,16 @@ stages, as K1 does, is later work.
 
 The wrapper runs the plain version for a tensor on the CPU and the kernel
 for a tensor on a CUDA device; it never falls back from one to the other.
-``LAUNCHES`` counts the launches per entry point, ``MODES`` per entry
-point, stage mode and twiddle view.  Under the NTT_MULMOD=solinas switch
-(``modmath.USE_SOLINAS``), at a q of the Solinas form of the stage's word,
-the wrapper launches K9's Solinas instantiation, which reads no Shoup
-constant, and counts it in ``SOLINAS_LAUNCHES``.
+Each call is a kernel span (``trace.py``); ``native.launch`` counts each
+launch in ``trace.LAUNCHES``, and the wrapper again under
+``mode/<launcher>/<stage mode>/<twiddle view>``.  Under the
+NTT_MULMOD=solinas switch (``modmath.USE_SOLINAS``), at a q of the
+Solinas form of the stage's word, the wrapper launches K9's Solinas
+instantiation, which reads no Shoup constant.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 from typing import Callable
 
@@ -53,7 +53,7 @@ import numpy as np
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch import native
+from ntt_tpu_torch import native, trace
 from ntt_tpu_torch import twiddles as tw
 from ntt_tpu_torch.kernels.elems import ops_at
 from ntt_tpu_torch.plan import NttPlan, final_mulop
@@ -63,10 +63,6 @@ PRE_NONE, PRE_8Q_4Q = 0, 1
 POST_NONE, POST_4Q_Q, POST_NINV = 0, 1, 2
 PERM_NONE, PERM_T1, PERM_T2 = 0, 1, 2  # group order inside blocks of 8 / 4
 MODE_NAMES = ("fwd", "bkw", "final", "seal_final")
-
-LAUNCHES = {"r2_stage_u32": 0, "r2_stage_u64": 0}
-SOLINAS_LAUNCHES = {"r2_stage_solinas_u32": 0, "r2_stage_solinas_u64": 0}
-MODES: collections.Counter = collections.Counter()
 
 # The inverses of the r2_16 / r4r2 tail segments' lane orders
 # (``ntt_tpu.kernels.radix2._R2_16_T1_INV`` / ``_T2_INV``).
@@ -87,7 +83,7 @@ class R2Stage:
     gs: int = 1
     js: int = 0
     perm: int = PERM_NONE
-    view: str = "std"  # the table layout it reads, for MODES
+    view: str = "std"  # the table layout it reads, for its mode count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,6 +188,7 @@ def check_cuda(a: torch.Tensor, word: int) -> tuple[int, int]:
     return a.numel() // n, n.bit_length() - 1
 
 
+@trace.traced("kernel")
 def r2_stage(a: torch.Tensor, tab: torch.Tensor, con: torch.Tensor, st: R2Stage, q: int,
              word: int, consts) -> torch.Tensor:
     """K9: one radix-2 stage of (..., N) at Shoup word 32 or 64 (int32 or
@@ -221,8 +218,7 @@ def r2_stage(a: torch.Tensor, tab: torch.Tensor, con: torch.Tensor, st: R2Stage,
                       None if sol else con.data_ptr(), q, rows, logn, st.lt, st.mode, st.pre,
                       st.post, st.base, st.gs, st.js, st.perm, n_inv, n_inv_con, f_tmp,
                       f_con & mask, f_con >> word, *(sol or ()), native.stream(a.device))
-    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
-    MODES[name, MODE_NAMES[st.mode], st.view] += 1
+    trace.LAUNCHES[f"mode/{name}/{MODE_NAMES[st.mode]}/{st.view}"] += 1
     return out
 
 

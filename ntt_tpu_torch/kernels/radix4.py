@@ -37,24 +37,23 @@ later work.
 
 The wrapper runs the plain version for a tensor on the CPU and the kernel
 for a tensor on a CUDA device; it never falls back from one to the other.
-``LAUNCHES`` counts the launches per entry point, ``MODES`` per entry
-point, stage mode and twiddle layout.  Under the NTT_MULMOD=solinas switch,
-at a q of the Solinas form of the stage's word (32 or 64), the wrapper
-launches K10's Solinas instantiation (the single products switched, the
-dual ones Shoup) and counts it in ``SOLINAS_LAUNCHES``; word 56 never
-switches.
+Each call is a kernel span (``trace.py``); ``native.launch`` counts each
+launch in ``trace.LAUNCHES``, and the wrapper again under
+``mode/<launcher>/<stage mode>/<twiddle layout>``.  Under the
+NTT_MULMOD=solinas switch, at a q of the Solinas form of the stage's word
+(32 or 64), the wrapper launches K10's Solinas instantiation (the single
+products switched, the dual ones Shoup); word 56 never switches.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
 
 import numpy as np
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch import native
+from ntt_tpu_torch import native, trace
 from ntt_tpu_torch import twiddles as tw
 from ntt_tpu_torch.kernels.elems import ops_at
 from ntt_tpu_torch.kernels.radix2 import Launch, check_cuda, run, with_stage
@@ -67,10 +66,6 @@ TW_EXPAND, TW_REGION = 0, 1
 PERM_NONE, PERM_READ, PERM_WRITE = 0, 1, 2  # LANE_PERM on the groups of a t == 1 stage
 MODE_NAMES = ("r4_fwd", "r4_inv", "r2_fwd", "r2_bkw")
 TW_NAMES = ("expand", "region")  # a radix-2 sweep's: "pairs"
-
-LAUNCHES = {"r4_stage_u32": 0, "r4_stage_u64": 0, "r4_stage_w56": 0}
-SOLINAS_LAUNCHES = {"r4_stage_solinas_u32": 0, "r4_stage_solinas_u64": 0}
-MODES: collections.Counter = collections.Counter()
 
 LANE_UNPERM = np.argsort(tw.LANE_PERM)
 
@@ -181,6 +176,7 @@ def plain_stage(a: torch.Tensor, tab: torch.Tensor, con: torch.Tensor, st: R4Sta
     return out.reshape(a.shape)
 
 
+@trace.traced("kernel")
 def r4_stage(a: torch.Tensor, tab: torch.Tensor, con: torch.Tensor, st: R4Stage, q: int,
              word: int, consts) -> torch.Tensor:
     """K10: one stage of (..., N) at Shoup word 32 (int32 reps), 56 or 64
@@ -207,8 +203,8 @@ def r4_stage(a: torch.Tensor, tab: torch.Tensor, con: torch.Tensor, st: R4Stage,
         native.launch(name, a.data_ptr(), out.data_ptr(), tab.data_ptr(), con.data_ptr(), q,
                       rows, logn, st.lt, st.mode, st.pre, st.post, st.tw, st.base, st.step,
                       st.perm, consts[0], consts[1], *(sol or ()), native.stream(a.device))
-    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
-    MODES[name, MODE_NAMES[st.mode], TW_NAMES[st.tw] if radix == 4 else "pairs"] += 1
+    view = TW_NAMES[st.tw] if radix == 4 else "pairs"
+    trace.LAUNCHES[f"mode/{name}/{MODE_NAMES[st.mode]}/{view}"] += 1
     return out
 
 

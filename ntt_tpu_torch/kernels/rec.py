@@ -24,11 +24,12 @@ device memory.
 
 The wrapper runs the plain PyTorch version (``sixstep.twist_mul``) for a
 tensor on the CPU and the kernel for a tensor on a CUDA device; it never
-falls back from one to the other.  ``LAUNCHES`` counts the kernel launches
-per width; ``SOLINAS_LAUNCHES`` those of K8's Solinas instantiation, which
-the wrapper launches under the NTT_MULMOD=solinas switch at a q of the
-Solinas form (both chained products switched; Ac and Bc unread);
-``SHARD_LAUNCHES`` counts again, by entry point, those on a row shard.
+falls back from one to the other; each call is a kernel span
+(``trace.py``).  Under the NTT_MULMOD=solinas switch, at a q of the
+Solinas form, the wrapper launches K8's Solinas instantiation (both
+chained products switched; Ac and Bc unread).  ``native.launch`` counts
+each launch in ``trace.LAUNCHES``, and one on a row shard again under
+``shard/<launcher>``.
 """
 
 from __future__ import annotations
@@ -36,17 +37,14 @@ from __future__ import annotations
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch import native
+from ntt_tpu_torch import native, trace
 from ntt_tpu_torch.kernels import sixstep, twopass
 from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.kernels.fused import cuda_batch
 from ntt_tpu_torch.plan import NttPlan
 
-LAUNCHES = {"twist_mul_u32": 0, "twist_mul_u64": 0}
-SOLINAS_LAUNCHES = {"twist_mul_solinas_u32": 0, "twist_mul_solinas_u64": 0}
-SHARD_LAUNCHES = dict.fromkeys([*LAUNCHES, *SOLINAS_LAUNCHES], 0)
 
-
+@trace.traced("kernel")
 def twist_mul(a: torch.Tensor, plan: NttPlan, l1_log: int, inverse: bool = False,
               row0: int = 0, rows_log: int | None = None) -> torch.Tensor:
     """K8: (..., N) in the (N1, N2) layout, N1 = 2^l1_log, times the
@@ -77,9 +75,8 @@ def twist_mul(a: torch.Tensor, plan: NttPlan, l1_log: int, inverse: bool = False
     with torch.cuda.device(a.device):
         native.launch(name, a.data_ptr(), out.data_ptr(), *ptrs, plan.q, batch, m, rows_log,
                       *(sol or ()), native.stream(a.device))
-    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
     if rows_log < l1_log:
-        SHARD_LAUNCHES[name] += 1
+        trace.LAUNCHES[f"shard/{name}"] += 1
     return out
 
 

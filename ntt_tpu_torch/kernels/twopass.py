@@ -31,12 +31,12 @@ lanes of every row, K7 with the whole transform's n^-1 constants.
 
 A wrapper runs the plain PyTorch version (``kernels/sixstep.py``) for a
 tensor on the CPU and the kernel for a tensor on a CUDA device; it never
-falls back from one to the other.  ``LAUNCHES`` counts the kernel launches
-per kernel and width; ``SOLINAS_LAUNCHES`` those of the Solinas
-instantiations, which a wrapper launches under the NTT_MULMOD=solinas switch
-at a q of the Solinas form (``kernels/fused.py``); they read no w_con.
-``SHARD_LAUNCHES`` counts again, by entry point, the launches on a shard
-(fewer rows or lanes than the whole polynomial's).
+falls back from one to the other; each call is a kernel span
+(``trace.py``).  Under the NTT_MULMOD=solinas switch, at a q of the
+Solinas form (``kernels/fused.py``), a wrapper launches the Solinas
+instantiation, which reads no w_con.  ``native.launch`` counts each launch
+in ``trace.LAUNCHES``, and a launch on a shard (fewer rows or lanes than
+the whole polynomial's) again under ``shard/<launcher>``.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ from __future__ import annotations
 import torch
 
 from ntt_tpu_torch import modmath as mm
-from ntt_tpu_torch import native
+from ntt_tpu_torch import native, trace
 from ntt_tpu_torch.kernels import sixstep
 from ntt_tpu_torch.kernels.elems import pick_ops
 from ntt_tpu_torch.kernels.fused import SMEM_BYTES, cuda_batch
@@ -53,9 +53,6 @@ from ntt_tpu_torch.plan import NttPlan
 SECTOR_BYTES = 32  # one DRAM sector: the least a coalesced access should move
 
 KERNELS = ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols")
-LAUNCHES = {f"{k}_u{w}": 0 for k in KERNELS for w in (32, 64)}
-SOLINAS_LAUNCHES = {f"{k}_solinas_u{w}": 0 for k in KERNELS for w in (32, 64)}
-SHARD_LAUNCHES = dict.fromkeys([*LAUNCHES, *SOLINAS_LAUNCHES], 0)
 
 
 # K4-K7's tile: the shared memory it aims at; a column tile of short rows
@@ -153,9 +150,8 @@ def _launch(kernel: str, a: torch.Tensor, plan: NttPlan, n: int, w: torch.Tensor
         native.launch(name, a.data_ptr(), out.data_ptr(), w.data_ptr(),
                       None if sol else w_con.data_ptr(), *before, batch, *after,
                       *(sol or ()), native.stream(a.device))
-    (SOLINAS_LAUNCHES if sol else LAUNCHES)[name] += 1
     if n < plan.n:
-        SHARD_LAUNCHES[name] += 1
+        trace.LAUNCHES[f"shard/{name}"] += 1
     return out
 
 
@@ -172,6 +168,7 @@ def _col_plan(plan: NttPlan, n1_log: int, col_plan: NttPlan | None) -> NttPlan:
     return col_plan
 
 
+@trace.traced("kernel")
 def fwd_cols(a: torch.Tensor, plan: NttPlan, n1_log: int,
              col_plan: NttPlan | None = None, n2_log: int | None = None) -> torch.Tensor:
     """K4: forward column stages of (..., N) in the (N1, N2) layout; lazy
@@ -188,6 +185,7 @@ def fwd_cols(a: torch.Tensor, plan: NttPlan, n1_log: int,
                    (plan.q,), (n1_log, n2_log, tc))
 
 
+@trace.traced("kernel")
 def fwd_rows(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
              keep_transposed: bool = False, row0: int = 0,
              rows_log: int | None = None) -> torch.Tensor:
@@ -208,6 +206,7 @@ def fwd_rows(a: torch.Tensor, plan: NttPlan, n1_log: int, strict: bool = True,
                                int(keep_transposed)))
 
 
+@trace.traced("kernel")
 def inv_rows(a: torch.Tensor, plan: NttPlan, n1_log: int, input_transposed: bool = False,
              row0: int = 0, rows_log: int | None = None) -> torch.Tensor:
     """K6: inverse row stages of (..., N) in the (N1, N2) layout, or the
@@ -226,6 +225,7 @@ def inv_rows(a: torch.Tensor, plan: NttPlan, n1_log: int, input_transposed: bool
                    (n1_log, rows_log, row0, n2_log, tr, int(input_transposed)))
 
 
+@trace.traced("kernel")
 def inv_cols(a: torch.Tensor, plan: NttPlan, n1_log: int,
              col_plan: NttPlan | None = None, n2_log: int | None = None) -> torch.Tensor:
     """K7: inverse column stages and the fused n^-1 stage of inv_rows'

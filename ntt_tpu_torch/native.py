@@ -23,6 +23,8 @@ import shutil
 import subprocess
 import time
 
+from ntt_tpu_torch import trace
+
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD = pathlib.Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -175,12 +177,14 @@ def lib() -> ctypes.CDLL:
 
 
 def launch(name: str, *args) -> None:
-    """Call launcher ``ntt_<name>`` and raise if the launch was refused."""
+    """Call launcher ``ntt_<name>``, raise if the launch was refused, and
+    count it in ``trace.LAUNCHES[name]``."""
     cdll = lib()
     err = getattr(cdll, "ntt_" + name)(*args)
     if err != 0:
         msg = cdll.ntt_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err} ({msg})")
+    trace.LAUNCHES[name] += 1
 
 
 def entry(kernel: str, word: int, solinas) -> str:

@@ -21,7 +21,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ntt_tpu_torch import api
+from ntt_tpu_torch import api, trace
 from ntt_tpu_torch.params import NttParams, find_ntt_primes
 
 
@@ -124,16 +124,21 @@ class DeviceRnsTower(RnsTower):
     def to_host(self, reps: list) -> np.ndarray:
         return np.stack([ctx.to_host(r) for ctx, r in zip(self.ctxs, reps)])
 
-    # device ops (list of tensors -> list of tensors)
+    # device ops (list of tensors -> list of tensors), each call the root span
+    # of its request (trace.py)
+    @trace.traced("tower")
     def fwd_rep(self, reps: list) -> list:
         return [ctx.fwd(r) for ctx, r in zip(self.ctxs, reps)]
 
+    @trace.traced("tower")
     def inv_rep(self, reps: list) -> list:
         return [ctx.inv(r) for ctx, r in zip(self.ctxs, reps)]
 
+    @trace.traced("tower")
     def pointwise_rep(self, ra: list, rb: list) -> list:
         return [ctx.pointwise(a, b) for ctx, a, b in zip(self.ctxs, ra, rb)]
 
+    @trace.traced("tower")
     def negacyclic(self, ra: list, rb: list) -> list:
         """Channel-wise product, every step on the device."""
         return [ctx.negacyclic(a, b) for ctx, a, b in zip(self.ctxs, ra, rb)]

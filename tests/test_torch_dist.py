@@ -28,7 +28,7 @@ from ntt_tpu.dist import sixstep as jdist
 from ntt_tpu.params import FIXTURES as JFIXTURES
 from ntt_tpu.params import NttParams as JNttParams
 from ntt_tpu.params import dist_params as jdist_params
-from ntt_tpu_torch import api, native
+from ntt_tpu_torch import api, native, trace
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch.dist import sixstep as dist
 from ntt_tpu_torch.kernels import rec, sixstep, twopass
@@ -368,15 +368,21 @@ def test_shard_wrappers_reject_what_they_cannot_take():
 @pytest.fixture
 def fake_card(monkeypatch):
     """Route CPU tensors to the wrappers' kernel branch and record each
-    launch, its arguments checked against native.SIGNATURES."""
+    launch that reaches the library through native.launch (which counts
+    it in trace.LAUNCHES), its arguments checked against native.SIGNATURES."""
     launched = []
 
-    def launch(name, *args):
-        assert len(args) == len(native.SIGNATURES["ntt_" + name]), name
-        launched.append((name, args))
+    class Library:
+        def __getattr__(self, entry):
+            def launcher(*args):
+                assert len(args) == len(native.SIGNATURES[entry]), entry
+                launched.append((entry.removeprefix("ntt_"), args))
+                return 0
+
+            return launcher
 
     monkeypatch.setattr(native, "route", lambda t: "cuda")
-    monkeypatch.setattr(native, "launch", launch)
+    monkeypatch.setattr(native, "lib", Library)
     monkeypatch.setattr(native, "stream", lambda device: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     return launched
@@ -392,7 +398,7 @@ def test_shard_launch_arguments(fake_card, width):
     word = plan.word
     rows = torch.zeros(3, 2 << n2_log, dtype=plan.dtype)  # two rows
     lanes = torch.zeros(3, 4 << n1_log, dtype=plan.dtype)  # four lanes
-    shards_before = {**twopass.SHARD_LAUNCHES, **rec.SHARD_LAUNCHES}
+    before = trace.LAUNCHES.copy()
     twopass.fwd_rows(rows, plan, n1_log, True, True, row0=6, rows_log=1)
     twopass.inv_rows(rows, plan, n1_log, False, row0=4, rows_log=1)
     twopass.fwd_cols(lanes, plan, n1_log, n2_log=2)
@@ -412,11 +418,13 @@ def test_shard_launch_arguments(fake_card, width):
     assert a8[7:-1] == (3, 1 + n2_log, 1)  # batch, the shard's m, its rows
     tabs = plan.device_tables("cpu").twist(n1_log, False)
     assert a8[2] == tabs[0][2:].data_ptr() and a8[4] == tabs[2][2:].data_ptr()
-    shards = {**twopass.SHARD_LAUNCHES, **rec.SHARD_LAUNCHES}
-    assert {k: v - shards_before[k] for k, v in shards.items() if v != shards_before[k]} == {
-        f"{k}_u{word}": 1 for k in ("fwd_rows", "inv_rows", "fwd_cols", "inv_cols", "twist_mul")}
+    names = [f"{k}_u{word}" for k in ("fwd_rows", "inv_rows", "fwd_cols", "inv_cols",
+                                      "twist_mul")]
+    assert trace.LAUNCHES - before == {**{k: 1 for k in names},
+                                       **{f"shard/{k}": 1 for k in names}}
+    shards = trace.LAUNCHES.copy()
     twopass.fwd_rows(torch.zeros(1, p.n, dtype=plan.dtype), plan, n1_log)  # a whole polynomial
-    assert {**twopass.SHARD_LAUNCHES, **rec.SHARD_LAUNCHES} == shards
+    assert trace.LAUNCHES - shards == {f"fwd_rows_u{word}": 1}
 
 
 # -- a two-process gloo world ----------------------------------------------------

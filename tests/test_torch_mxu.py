@@ -15,7 +15,7 @@ from ntt_tpu import api as jax_api
 from ntt_tpu.kernels import mxu as jmxu
 from ntt_tpu.params import FIXTURES as JFIXTURES
 from ntt_tpu.params import NttParams as JNttParams
-from ntt_tpu_torch import api
+from ntt_tpu_torch import api, trace
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch import twiddles as ttw
 from ntt_tpu_torch.kernels import mxu
@@ -126,12 +126,12 @@ def test_limb_matmul_plain(matmul_cases, contract, scaled):
         s_con = (s << np.uint64(32)) // np.uint64(q)  # q < 2^28: no overflow
         scale = (mm.from_host(s, q, "cpu"), mm.from_host(s_con, q, "cpu"))
     tl, tx = torch.from_numpy(limbs), mm.from_host(x, q, "cpu")
-    before = dict(mxu.LAUNCHES)
+    before = trace.LAUNCHES.copy()
     for fn in (mxu.limb_matmul_plain, mxu.limb_matmul):
         got = fn(tl, tx, q, contract, scale)
         assert got.dtype == torch.int32 and got.shape == tx.shape
         np.testing.assert_array_equal(mm.to_host(got), want)
-    assert mxu.LAUNCHES == before  # the CPU route launches nothing
+    assert trace.LAUNCHES == before  # the CPU route launches nothing
 
 
 def test_limb_matmul_checks():

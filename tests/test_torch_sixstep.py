@@ -25,7 +25,7 @@ from ntt_tpu.kernels import sixstep as jsix
 from ntt_tpu.params import FIXTURES as JFIXTURES
 from ntt_tpu.params import NttParams as JNttParams
 from ntt_tpu.plan import get_plan as jax_get_plan
-from ntt_tpu_torch import api
+from ntt_tpu_torch import api, trace
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch.kernels import fused, sixstep, twopass
 from ntt_tpu_torch.kernels.elems import pick_ops
@@ -326,12 +326,12 @@ def test_fixture_beyond_one_block_through_auto(i):
     assert api._pick(plan, "auto").name == "sixstep"
     assert api._pick(plan, "auto", inverse=True).name == "sixstep"
     a = mm.from_host(rand(p, (1, p.n), 16), p.q, "cpu")
-    twopass_before = dict(twopass.LAUNCHES)
+    before = trace.LAUNCHES.copy()
     f = api.fwd_ntt(a, p)
     np.testing.assert_array_equal(mm.to_host(f),
                                   rm.fwd_ntt_harvey(mm.to_host(a), p.q, plan.w, plan.w_con))
     assert torch.equal(api.inv_ntt(f, p), a)
-    assert twopass.LAUNCHES == twopass_before  # the CPU route launches nothing
+    assert trace.LAUNCHES == before  # the CPU route launches nothing
 
 
 # -- K4-K7's tile on the card (twopass.round_tile_log) ---------------------------

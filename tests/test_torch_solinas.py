@@ -12,6 +12,7 @@ The switch is flipped in this process only through the port's global
 (``modmath.USE_SOLINAS``, with monkeypatch): NTT_MULMOD is never set in this
 process's environment, which later subprocesses inherit."""
 
+import collections
 import contextlib
 import ctypes
 import json
@@ -28,7 +29,7 @@ import torch
 from ntt_tpu import modmath as jmm
 from ntt_tpu import params as jparams
 from ntt_tpu import refmodel as rm
-from ntt_tpu_torch import api, lab, native
+from ntt_tpu_torch import api, lab, native, trace
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch import params as tparams
 from ntt_tpu_torch.kernels import (fused, fused_lab, pointwise, probes, radix2, radix4, rec,
@@ -506,16 +507,22 @@ def test_switch_off_changes_nothing(q, m, name):
 @pytest.fixture
 def fake_card(monkeypatch):
     """Route CPU tensors to the wrappers' kernel branch and record each
-    launch: its name, and its arguments checked against the entry point's
-    ctypes signature (native.SIGNATURES)."""
+    launch that reaches the library through native.launch (which counts
+    it in trace.LAUNCHES): its name, and its arguments checked against the
+    entry point's ctypes signature (native.SIGNATURES)."""
     launched = []
 
-    def launch(name, *args):
-        assert len(args) == len(native.SIGNATURES["ntt_" + name]), name
-        launched.append((name, args))
+    class Library:
+        def __getattr__(self, entry):
+            def launcher(*args):
+                assert len(args) == len(native.SIGNATURES[entry]), entry
+                launched.append((entry.removeprefix("ntt_"), args))
+                return 0
+
+            return launcher
 
     monkeypatch.setattr(native, "route", lambda t: "cuda")
-    monkeypatch.setattr(native, "launch", launch)
+    monkeypatch.setattr(native, "lib", Library)
     monkeypatch.setattr(native, "stream", lambda device: 0)
     monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
     return launched
@@ -549,13 +556,11 @@ KERNELS = ("fwd_fused", "inv_fused", "fwd_cols", "fwd_rows", "inv_rows", "inv_co
 def test_wrappers_launch_the_solinas_instantiation(fake_card, monkeypatch, q, word):
     """Under the switch every wrapper launches its Solinas entry point with
     (e, k) and no Shoup-constant table (K10 keeps its con for the dual
-    products), and counts it in SOLINAS_LAUNCHES; with the switch off the
-    Shoup entry points, counted in LAUNCHES."""
-    counts = (fused, twopass, rec, radix2, radix4)
+    products), and trace.LAUNCHES counts it under that name and no Shoup
+    one; with the switch off the Shoup entry points."""
     m = 6
     monkeypatch.setattr(mm, "USE_SOLINAS", True)
-    before = {k: v for c in counts for k, v in c.SOLINAS_LAUNCHES.items()}
-    shoup_before = {k: v for c in counts for k, v in c.LAUNCHES.items()}
+    before = trace.LAUNCHES.copy()
     _drive_every_wrapper(q, m, word)
     form = mm.solinas_args(q, word)
     names = [n for n, _ in fake_card]
@@ -564,10 +569,8 @@ def test_wrappers_launch_the_solinas_instantiation(fake_card, monkeypatch, q, wo
         assert args[-3:-1] == form, name
         if not name.startswith("r4_stage"):
             assert None in args, name  # the w_con pointer (twist: Ac, Bc)
-    for c in counts:
-        for k, v in c.SOLINAS_LAUNCHES.items():
-            assert v == before[k] + (k in names), k
-        assert all(v == shoup_before[k] for k, v in c.LAUNCHES.items())
+    launched = {k: v for k, v in (trace.LAUNCHES - before).items() if "/" not in k}
+    assert launched == collections.Counter(names)
     fake_card.clear()
     monkeypatch.setattr(mm, "USE_SOLINAS", False)
     _drive_every_wrapper(q, m, word)
@@ -580,7 +583,7 @@ def test_solinas_mul_check_wrapper(host_folds, fake_card, q, mult, word):
     """pointwise.solinas_mul, the check of the product alone: on CPU tensors
     its plain version equals modarith.cuh's folds over the whole word, switch
     off; on the card's route one launch of solinas_mul_u<word> with (e, k),
-    counted in CHECK_LAUNCHES."""
+    counted in trace.LAUNCHES under that name."""
     w, t = full_range_operands(q, word, n=64)
     dt, tdt = (np.uint64, np.int64) if word == 64 else (np.uint32, np.int32)
     wa, ta = np.ascontiguousarray(w.astype(dt)), np.ascontiguousarray(t.astype(dt))
@@ -593,11 +596,11 @@ def test_solinas_mul_check_wrapper(host_folds, fake_card, q, mult, word):
         mp.setattr(native, "route", lambda x: "cpu")
         got = pointwise.solinas_mul(wt, tt, q)
     assert got.dtype == wt.dtype and torch.equal(got, torch.from_numpy(want.view(tdt)))
-    before = dict(pointwise.CHECK_LAUNCHES)
+    before = trace.LAUNCHES.copy()
     pointwise.solinas_mul(wt, tt, q)
     name = f"solinas_mul_u{word}"
     assert [n for n, _ in fake_card] == [name] and fake_card[0][1][-3:-1] == form
-    assert pointwise.CHECK_LAUNCHES == {k: v + (k == name) for k, v in before.items()}
+    assert trace.LAUNCHES - before == {name: 1}
     with pytest.raises(ValueError, match="Solinas form"):
         pointwise.solinas_mul(wt, tt, FIXTURES[9].q if word == 32 else bench_params(16, 62).q)
 
@@ -632,37 +635,29 @@ LAB_COUNTS = ("fwd_fused_v2_r2", "fwd_fused_v2_r4", "fwd_fused_v3", "diag_math")
                                      (Q27, FIXTURES[9].q)], ids=hex)
 def test_lab_wrappers_launch_the_solinas_instantiation(fake_card, monkeypatch, q, other):
     """Under the switch L1 (both groups), L2 and diag_math launch their
-    Solinas entry points with (e, k) and no w_con, counted in
-    SOLINAS_LAUNCHES; off the switch, and at a q of the word not of the
-    form, the Shoup ones, counted in LAUNCHES."""
-    counts = (fused_lab, probes)
-
-    def snapshot():
-        return ({k: v for c in counts for k, v in c.SOLINAS_LAUNCHES.items()},
-                {k: v for c in counts for k, v in c.LAUNCHES.items()})
-
+    Solinas entry points with (e, k) and no w_con, counted in trace.LAUNCHES
+    under those names (and L1 under its groups' Solinas names) and no Shoup
+    one; off the switch, and at a q of the word not of the form, the Shoup
+    ones."""
     monkeypatch.setattr(mm, "USE_SOLINAS", True)
-    sol0, shoup0 = snapshot()
+    before = trace.LAUNCHES.copy()
     word = _drive_lab_wrappers(q)
     form = mm.solinas_args(q, word)
     assert form is not None
     assert [n for n, _ in fake_card] == [f"{k}_solinas_u{word}" for k in LAB_KERNELS]
     for name, args in fake_card:
         assert args[-3:-1] == form and args[3] is None, name  # (e, k); no w_con pointer
-    sol1, shoup1 = snapshot()
-    assert sol1 == {k: v + (k in {f"{c}_solinas_u{word}" for c in LAB_COUNTS})
-                    for k, v in sol0.items()}
-    assert shoup1 == shoup0
+    assert trace.LAUNCHES - before == collections.Counter(
+        f"{k}_solinas_u{word}" for k in LAB_KERNELS + LAB_COUNTS[:2])
+    before = trace.LAUNCHES.copy()
     for on, at in ((False, q), (True, other)):
         fake_card.clear()
         monkeypatch.setattr(mm, "USE_SOLINAS", on)
         assert _drive_lab_wrappers(at) == word and mm.solinas_args(at, word) is None
         assert [n for n, _ in fake_card] == [f"{k}_u{word}" for k in LAB_KERNELS]
         assert all(None not in args for _, args in fake_card)
-    sol2, shoup2 = snapshot()
-    assert sol2 == sol1
-    assert shoup2 == {k: v + 2 * (k in {f"{c}_u{word}" for c in LAB_COUNTS})
-                      for k, v in shoup1.items()}
+    assert trace.LAUNCHES - before == collections.Counter(
+        f"{k}_u{word}" for k in 2 * (LAB_KERNELS + LAB_COUNTS[:2]))
 
 
 def test_lab_runs_every_candidate_under_switch(monkeypatch, capsys):
