@@ -451,7 +451,7 @@ def test_two_process_gloo_world(tmp_path):
     logs = []
     try:
         for proc in procs:
-            logs.append(proc.communicate(timeout=240)[0])
+            logs.append(proc.communicate(timeout=60)[0])
     finally:
         for proc in procs:
             if proc.poll() is None:

@@ -151,7 +151,7 @@ def host_folds(tmp_path_factory):
     lib = tmp / "libfolds.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-shared", "-fPIC",
                     "-I", str(native.CSRC), "-o", str(lib), str(src)],
-                   check=True, capture_output=True, text=True, timeout=120)
+                   check=True, capture_output=True, text=True, timeout=60)
     cdll = ctypes.CDLL(str(lib))
     for fn in (cdll.folds64, cdll.folds32):
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_long, ctypes.c_int, ctypes.c_int]
@@ -351,7 +351,7 @@ def jax_switched(tmp_path_factory):
     env.pop("NTT_MULHI64", None)
     r = subprocess.run([sys.executable, "-c", _JAX_SCRIPT, json.dumps(JAX_CALLS), str(path),
                         json.dumps(LAB_CALLS), str(LAB_M), str(LAB_BATCH)],
-                       env=env, cwd=REPO, capture_output=True, text=True, timeout=600)
+                       env=env, cwd=REPO, capture_output=True, text=True, timeout=240)
     assert r.returncode == 0, r.stderr[-4000:]
     data = np.load(path)
     return {tuple(c): data[f"arr_{i}"] for i, c in enumerate(JAX_CALLS + LAB_CALLS)}
