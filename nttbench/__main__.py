@@ -1,6 +1,7 @@
 """python3 -m nttbench --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-One run of one cell of ``BENCHMARK.json`` on the card: its one-line JSON
+One run of one cell of ``BENCHMARK.json`` on the cards it asks for
+(``cuda:0`` ... ``cuda:<chips-1>``, one process): its one-line JSON
 result as the last line of stdout, each compared number beside its
 limit as the last lines of stderr.  Without a CUDA card, or with fewer
 cards than the cell asks for, it exits 2 and prints no result; if JAX or

@@ -20,8 +20,9 @@ import torch
 from nttbench import harness
 
 
-def control_system(config: dict, device: torch.device):
-    """``build``'s signature: the reference tower in float64 products."""
+def control_system(config: dict, devices: list[torch.device]):
+    """``build``'s signature: the reference tower in float64 products, on
+    the device of its inputs."""
     ref = harness.load_module(harness.ROOT, "reference", config["reference"])
     return ref.Tower([int(q, 16) for q in config["moduli"]], mul=ref.mulmod_f64), \
         {"library_s": 0.0, "tables_s": 0.0}

@@ -14,11 +14,17 @@ the module that builds the system under test
 ``nttbench/metrics/<metric>.py`` from this run's records; the kernel
 groups that the trace's readers use are ``nttbench/kernel_groups/*.json``.
 
+A cell runs on the ``chips`` cards that ``BENCHMARK.json`` gives it,
+``cuda:0`` ... ``cuda:<chips-1>``, from one process: the system is built
+on the list of them, inputs are made on the first (the home card), and
+every synchronise waits for each of them.
+
 The window is a closed loop with one step in flight, as a caller that
-waits for its batch runs it: issue a step, synchronise, repeat until the
-window's seconds are over.  The host clock times the window and, in
-each step, the span from issue to the entry's return.  With trace, a
-short window under ``torch.profiler`` follows the measured one.
+waits for its batch runs it: issue a step, synchronise every card,
+repeat until the window's seconds are over.  The host clock times the
+window and, in each step, the span from issue to the entry's return.
+With trace, a short window under ``torch.profiler`` follows the measured
+one.
 """
 
 from __future__ import annotations
@@ -137,17 +143,32 @@ def make_inputs(cell: Cell, seed: int, device: torch.device) -> list[tuple[list,
     return sets
 
 
-def card_line(device: torch.device) -> str:
-    """'name, power limit' of the card, or the host's device name."""
-    if device.type != "cuda":
+def cell_devices(home: torch.device, chips: int) -> list[torch.device]:
+    """The cell's ``chips`` cards, ``home`` first and the next indices
+    after it: ``cuda:0`` ... ``cuda:<chips-1>``.  On the CPU (the tests'
+    tiny cells) the host stands in for every card."""
+    return [home] + [torch.device(home.type, (home.index or 0) + i) for i in range(1, chips)]
+
+
+def card_line(devices: list[torch.device]) -> str:
+    """'name, power limit' of each card, or the host's device name."""
+    if devices[0].type != "cuda":
         return "cpu"
     try:
-        return subprocess.run(
-            ["nvidia-smi", f"--id={device.index or 0}", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-            check=True).stdout.strip()
+        return "; ".join(subprocess.run(
+            ["nvidia-smi", "--id=" + ",".join(str(d.index or 0) for d in devices),
+             "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True,
+            text=True, timeout=60, check=True).stdout.strip().splitlines())
     except (OSError, subprocess.SubprocessError) as e:
-        return f"{torch.cuda.get_device_name(device)} (nvidia-smi: {e})"
+        return f"{torch.cuda.get_device_name(devices[0])} (nvidia-smi: {e})"
+
+
+def memory_peak_bytes(devices: list[torch.device]) -> int:
+    """The peak of allocated device memory on the fullest of the cards
+    (0 on the CPU)."""
+    if devices[0].type != "cuda":
+        return 0
+    return max(torch.cuda.max_memory_allocated(d) for d in devices)
 
 
 def _sync(device: torch.device) -> None:
@@ -155,7 +176,13 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def window(fn, sets: list, outs: list, seconds: float, device: torch.device) -> dict:
+def sync_all(devices: list[torch.device]) -> None:
+    """Wait for the work of every card of the cell."""
+    for d in devices:
+        _sync(d)
+
+
+def window(fn, sets: list, outs: list, seconds: float, devices: list[torch.device]) -> dict:
     """The measured window: closed loop, one step in flight."""
     issue_s = []
     k, w0 = 0, time.perf_counter()
@@ -164,7 +191,7 @@ def window(fn, sets: list, outs: list, seconds: float, device: torch.device) -> 
         t0 = time.perf_counter()
         out = fn(ra, rb)
         issue_s.append(time.perf_counter() - t0)
-        _sync(device)
+        sync_all(devices)
         t2 = time.perf_counter()
         outs[k % len(sets)] = out
         k += 1
@@ -173,14 +200,15 @@ def window(fn, sets: list, outs: list, seconds: float, device: torch.device) -> 
     return {"steps": k, "window_s": t2 - w0, "host_issue_s": issue_s}
 
 
-def traced_window(fn, sets: list, outs: list, steps: int, device: torch.device,
+def traced_window(fn, sets: list, outs: list, steps: int, devices: list[torch.device],
                   groups: dict) -> dict:
     """``steps`` steps under ``torch.profiler``, after its own warm-up
     steps (annotated apart, outside the traced window), reduced by
-    ``trace.reduce``."""
+    ``trace.reduce`` over the cell's cards."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if devices[0].type == "cuda"
+                                     else [])
     with tempfile.TemporaryDirectory() as tmp:
         path = pathlib.Path(tmp) / "trace.json"
         with profile(activities=acts) as prof:
@@ -190,11 +218,11 @@ def traced_window(fn, sets: list, outs: list, steps: int, device: torch.device,
                     with record_function(tr.PHASES[0]):
                         out = fn(ra, rb)
                     with record_function(tr.PHASES[1]):
-                        _sync(device)
+                        sync_all(devices)
                 outs[k % len(sets)] = out
         prof.export_chrome_trace(str(path))
         events = json.loads(path.read_text())["traceEvents"]
-    return tr.reduce(events, groups)
+    return tr.reduce(events, groups, len(devices))
 
 
 def sample_rows(cell: Cell, seed: int) -> list[list[np.ndarray]]:
@@ -229,27 +257,29 @@ def check(cell: Cell, picked: list) -> tuple[dict, int]:
 def run(name: str, seed: int, seconds: float, trace: bool, device: torch.device,
         root: pathlib.Path = ROOT, system=None,
         log=lambda s: print(s, file=sys.stderr, flush=True)) -> dict:
-    """One run of cell ``name``; the result line as a dict.  ``system``
-    (``build(config, device)``'s signature) replaces the configuration's
-    system under test, as the control and the fault tests do."""
+    """One run of cell ``name`` on its cards, ``device`` (the home card)
+    first; the result line as a dict.  ``system`` (``build(config,
+    devices)``'s signature) replaces the configuration's system under
+    test, as the control and the fault tests do."""
     t_enter = time.perf_counter()
     age0 = process_age_s()
     cell = Cell.load(name, root)
+    devices = cell_devices(device, cell.workload["chips"])
     build = system or load_module(root, "systems", cell.config["system"]).build
-    sut, times = build(cell.config, device)
+    sut, times = build(cell.config, devices)
     sets = make_inputs(cell, seed, device)
     fn = getattr(sut, cell.traffic["entry"])
     outs: list = [None] * len(sets)
     for k in range(WARMUP_ROUNDS * len(sets)):
         outs[k % len(sets)] = fn(*sets[k % len(sets)])
-    _sync(device)
+    sync_all(devices)
     setup_s = age0 + time.perf_counter() - t_enter
-    card = card_line(device)
+    card = card_line(devices)
     log(f"nttbench: {name} seed {seed} on {card}: set-up {setup_s:.3f} s "
         f"(library {times['library_s']:.3f} s, tables {times['tables_s']:.3f} s)")
 
-    rec = {"setup_s": setup_s, **times, "work": cell.step_work(),
-           **window(fn, sets, outs, seconds, device)}
+    rec = {"setup_s": setup_s, **times, "work": cell.step_work(), "chips": len(devices),
+           **window(fn, sets, outs, seconds, devices)}
     per_step = cell.rows * len(cell.moduli)  # products a step
     rec["products"] = rec["steps"] * per_step  # in the measured window
     attempted = rec["steps"] * per_step
@@ -257,10 +287,11 @@ def run(name: str, seed: int, seconds: float, trace: bool, device: torch.device,
         mean = rec["window_s"] / rec["steps"]
         n = min(max(math.ceil(TRACE_S / mean), TRACE_STEPS[0]), TRACE_STEPS[1])
         groups = tr.load_groups(root / PKG / "kernel_groups")
-        rec["trace"] = traced_window(fn, sets, outs, n, device, groups)
+        rec["trace"] = traced_window(fn, sets, outs, n, devices, groups)
         attempted += (PROFILER_WARMUP + n) * per_step
         log(f"nttbench: traced {rec['trace']['steps']} steps; kernel launches a step "
-            f"{rec['trace']['launches_range']} (least, most)")
+            f"{rec['trace']['launches_range']} (least, most); busy s by card "
+            f"{rec['trace']['busy_by_card_s']} of {rec['trace']['window_s']}")
         if rec["trace"]["unmatched_s"]:
             print(f"nttbench: device seconds of kernels in no group: "
                   f"{json.dumps(rec['trace']['unmatched_s'])}", flush=True)
@@ -274,9 +305,8 @@ def run(name: str, seed: int, seconds: float, trace: bool, device: torch.device,
 
     dev = {"platform": "gpu" if device.type == "cuda" else device.type,
            "kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-           "count": 1,
-           "memory_peak_bytes": (torch.cuda.max_memory_allocated(device)
-                                 if device.type == "cuda" else 0)}
+           "count": len(devices),
+           "memory_peak_bytes": memory_peak_bytes(devices)}
     if trace:
         dev["busy_s"] = rec["trace"]["busy_s"]
         dev["window_s"] = rec["trace"]["window_s"]

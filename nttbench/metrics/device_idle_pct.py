@@ -1,6 +1,7 @@
-"""device_idle_pct: the share of the traced window in which no device
-operation ran: 100 less the union of the kernel, copy and fill intervals
-over the window (profiler)."""
+"""device_idle_pct: the share of the traced window in which a card ran no
+device operation, the mean over the cell's cards: 100 less ``busy_s``
+(each card's union of its kernel, copy and fill intervals, the mean over
+the cards) over the window (profiler)."""
 
 
 def read(rec: dict) -> float | None:

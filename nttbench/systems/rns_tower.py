@@ -1,7 +1,8 @@
 """The port's RNS tower, ``ntt_tpu_torch.rns.DeviceRnsTower``, built for a
 configuration: one ``api.DeviceNtt`` a listed prime, all at the
-configuration's N, their tables on ``device``.  The traffic's ``entry``
-names the tower method a step calls."""
+configuration's N, their tables on the cell's home card (the first of
+its devices; the tower uses no other).  The traffic's ``entry`` names the
+tower method a step calls."""
 
 from __future__ import annotations
 
@@ -10,13 +11,14 @@ import time
 import torch
 
 
-def build(config: dict, device: torch.device) -> tuple[object, dict[str, float]]:
+def build(config: dict, devices: list[torch.device]) -> tuple[object, dict[str, float]]:
     """(the tower, {"library_s", "tables_s"}): the seconds to build or load
     the kernel library from its cache in the checkout, and to make the
     tower's plans and put their tables on the device."""
     from ntt_tpu_torch import native, rns
     from ntt_tpu_torch.params import NttParams
 
+    device = devices[0]
     t0 = time.perf_counter()
     if device.type == "cuda":
         native.lib()

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from nttbench import control, harness
-from nttbench.tests.conftest import REPO, TINY
+from nttbench.tests.conftest import REPO, TINY, make_root
 
 CPU = torch.device("cpu")
 SEED = 2**31 + 12345  # larger than 32 signed bits hold, as a run's seed may be
@@ -145,3 +145,39 @@ def test_command_alone_exits_without_result(tmp_path):
                  "--trace", "0", env=env)
     assert p.returncode != 0
     assert p.stdout == ""
+
+
+@pytest.mark.parametrize("chips", [1, 4])
+def test_each_card_of_a_cell_is_handed_synchronised_and_counted(tmp_path, monkeypatch, chips):
+    """A cell of ``chips`` cards: the system gets every card, home first;
+    each synchronise (after the warm-up, each measured step, each traced
+    step) waits for each card in turn; the line counts the cards."""
+    root = make_root(tmp_path, cells={"tiny.cards": TINY["tiny.bfv.mul"]})
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    next(w for w in bench["workloads"] if w["name"] == "tiny.cards")["chips"] = chips
+    (root / "BENCHMARK.json").write_text(json.dumps(bench))
+    synced, handed = [], []
+    sync = harness._sync
+    monkeypatch.setattr(harness, "_sync", lambda d: (synced.append(d), sync(d)))
+
+    def system(config, devices):
+        handed.append(list(devices))
+        return harness.load_module(REPO, "systems", config["system"]).build(config, devices)
+
+    res = _run(root, "tiny.cards", system=system, trace=True)
+    cards = [CPU] + [torch.device("cpu", i) for i in range(1, chips)]
+    assert handed == [cards]
+    assert res["correct"] is True
+    assert res["device"]["count"] == chips
+    _, _, channels, _, rows = TINY["tiny.bfv.mul"]
+    assert synced == cards * (1 + res["attempted"] // (channels * rows))
+
+
+def test_memory_peak_is_the_fullest_cards(monkeypatch):
+    peaks = {0: 5 << 30, 1: 9 << 30, 2: 7 << 30, 3: 1 << 30}
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda d: peaks[d.index])
+    cards = harness.cell_devices(torch.device("cuda", 0), 4)
+    assert cards == [torch.device("cuda", i) for i in range(4)]
+    assert harness.memory_peak_bytes(cards) == 9 << 30
+    assert harness.memory_peak_bytes(cards[:1]) == 5 << 30
+    assert harness.memory_peak_bytes([CPU]) == 0

@@ -32,8 +32,8 @@ def launches_as_on_the_card(monkeypatch):
     nothing, so the readers would find no launch to cost."""
     reduce = tr.reduce
 
-    def with_launches(events, groups):
-        out = reduce(events, groups)
+    def with_launches(events, groups, cards):
+        out = reduce(events, groups, cards)
         out["launches"] = sum(s.name.startswith("ntt_tpu_torch.kernel.")
                               for s in trace.spans()) / out["steps"]
         return out

@@ -3,14 +3,21 @@ the per-layer metrics read.
 
 The traced window runs from the start of the first ``nttbench.step``
 annotation to the end of the last.  Within it: the device operations
-(kernels, copies, fills) and the union of their intervals; the device
+(kernels, copies, fills) and, on each of the cell's cards, the union of
+its own operations' intervals (the profiler's ``args["device"]``, or a
+copy between cards' ``inDevice``; an event with neither is card 0's),
+whose mean over the cards is the busy
+time, a card with no operation idle all through; the device
 seconds of each kernel group (kernel-name patterns, one data file a group
 in ``kernel_groups/``; a kernel that matches two groups is an error) and
 of the kernels that match no group; the kernel launches a step (the
 median over the steps: a kernel counts in the step whose interval holds
-its launch call); the device operations that took most time; and the
-device's idle gaps, cut at the steps' phases, summed by what the host
-thread that ran the steps was doing at the middle of each piece.
+its launch call); the device operations that took most time; and each
+card's idle gaps, cut at the steps' phases, summed by what the host
+thread that ran the steps was doing at the middle of each piece, over the
+cards and divided by their number, so that a share of the window means
+the same on any number of cards.  Device seconds (the groups, the kernels
+in no group, the operations) and the launches are summed over the cards.
 """
 
 from __future__ import annotations
@@ -81,8 +88,17 @@ def _host_labels(host: list[dict], mids: list[float]) -> list[str]:
     return labels
 
 
-def reduce(events: list[dict], groups: dict[str, list[re.Pattern]]) -> dict:
-    """The traced window's records; seconds throughout."""
+def _card(event: dict) -> int:
+    """The card a device operation ran on: the profiler's ``args["device"]``,
+    or for a copy between two cards the one it ran in (``inDevice``); card
+    0 where the event names neither."""
+    args = event.get("args", {})
+    return args.get("device", args.get("inDevice", 0))
+
+
+def reduce(events: list[dict], groups: dict[str, list[re.Pattern]], cards: int = 1) -> dict:
+    """The traced window's records over the cell's ``cards`` cards; seconds
+    throughout."""
     steps = sorted((e for e in events
                     if e.get("cat") == "user_annotation" and e.get("name") == STEP),
                    key=lambda e: e["ts"])
@@ -95,8 +111,11 @@ def reduce(events: list[dict], groups: dict[str, list[re.Pattern]]) -> dict:
         if e.get("cat") in DEVICE_CATS:
             s, t = max(e["ts"], w0), min(e["ts"] + e["dur"], w1)
             if t > s:
-                dev.append((kernel_name(e["name"]), s, t, e["cat"]))
-    busy = _union([(s, t) for _, s, t, _ in dev])
+                dev.append((kernel_name(e["name"]), s, t, _card(e)))
+    if any(not 0 <= card < cards for *_, card in dev):
+        raise ValueError(f"a device operation outside the cell's {cards} card(s): "
+                         f"{sorted({card for *_, card in dev})}")
+    busy = [_union([(s, t) for _, s, t, card in dev if card == c]) for c in range(cards)]
     by_name: dict[str, float] = {}
     for name, s, t, _ in dev:
         by_name[name] = by_name.get(name, 0.0) + (t - s) * 1e-6
@@ -113,18 +132,20 @@ def reduce(events: list[dict], groups: dict[str, list[re.Pattern]]) -> dict:
     tids = {e.get("tid") for e in steps}
     host = [e for e in events if e.get("cat") in HOST_CATS and e.get("tid") in tids
             and "dur" in e]
-    # the idle gaps, cut where a step phase starts or ends, so that each
-    # piece lies in one phase
+    # each card's idle gaps, cut where a step phase starts or ends, so that
+    # each piece lies in one phase
     cuts = sorted({t for e in host if e["name"] in PHASES for t in (e["ts"], e["ts"] + e["dur"])})
-    edges = [w0] + [x for iv in busy for x in iv] + [w1]
-    gaps = []
-    for s, t in zip(edges[::2], edges[1::2]):
-        inner = cuts[bisect.bisect_right(cuts, s):bisect.bisect_left(cuts, t)]
-        bounds = [s, *inner, t]
-        gaps += [(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
     idle: dict[str, float] = {}
-    for (s, t), label in zip(gaps, _host_labels(host, [(s + t) / 2 for s, t in gaps])):
-        idle[label] = idle.get(label, 0.0) + (t - s) * 1e-6
+    for card_busy in busy:
+        edges = [w0] + [x for iv in card_busy for x in iv] + [w1]
+        gaps = []
+        for s, t in zip(edges[::2], edges[1::2]):
+            inner = cuts[bisect.bisect_right(cuts, s):bisect.bisect_left(cuts, t)]
+            bounds = [s, *inner, t]
+            gaps += [(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
+        for (s, t), label in zip(gaps, _host_labels(host, [(s + t) / 2 for s, t in gaps])):
+            idle[label] = idle.get(label, 0.0) + (t - s) * 1e-6
+    idle = {label: sec / cards for label, sec in idle.items()}
     # a kernel counts in the step whose host interval holds its launch call
     # (matched by the profiler's correlation id), whatever the offset
     # between the host's and the device's clocks
@@ -136,11 +157,13 @@ def reduce(events: list[dict], groups: dict[str, list[re.Pattern]]) -> dict:
                       and e.get("args", {}).get("correlation") in launch_ts)
     per_step = [bisect.bisect_right(launched, e["ts"] + e["dur"])
                 - bisect.bisect_left(launched, e["ts"]) for e in steps]
+    busy_by_card = [sum(t - s for s, t in b) * 1e-6 for b in busy]
     top = lambda d: [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:TOP]]
     return {
         "steps": len(steps),
         "window_s": (w1 - w0) * 1e-6,
-        "busy_s": sum(t - s for s, t in busy) * 1e-6,
+        "busy_s": sum(busy_by_card) / cards,
+        "busy_by_card_s": busy_by_card,
         "launches": statistics.median(per_step),
         "launches_range": [min(per_step), max(per_step)],
         "group_s": group_s,
