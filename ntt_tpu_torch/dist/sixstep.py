@@ -32,6 +32,17 @@ Each all-to-all is a pass of its own on either side: a shard's blocks are
 copied into a tensor whose leading dimension is the destination shard, and
 the blocks received are copied back into the layout the next kernel reads.
 
+Tracing (``trace.py``): each entry point is a root span
+``ntt_tpu_torch.dist.<entry>``; each phase of the exchange, the scatter of
+the inputs onto the shards, each all-to-all with its copies on either side
+and the gather of the output, is an ``ntt_tpu_torch.exchange.<phase>``
+span inside it, beside the kernel spans; ``trace.EXCHANGED[<phase>]``
+adds the bytes the phase sends from one shard position to another.  The
+whole input and output belong to the home shard (shard 0) in the local
+form, so its own slice and piece cross nothing; in the ranks form every
+rank holds the whole input (the scatter sends nothing) and sends its
+piece of the output to every other rank.
+
 A ``Mesh`` takes one of two forms.  Local: this process holds every shard,
 each on a device of its own or several on one card (the counterpart of the
 JAX tests' virtual CPU mesh); an all-to-all is tensor slicing and
@@ -61,11 +72,18 @@ import numpy as np
 import torch
 import torch.distributed as tdist
 
-from ntt_tpu_torch import api
+from ntt_tpu_torch import api, trace
 from ntt_tpu_torch import modmath as mm
 from ntt_tpu_torch.kernels import pointwise, rec, sixstep, twopass
 from ntt_tpu_torch.params import NttParams
 from ntt_tpu_torch.plan import NttPlan
+
+SCATTER, ALL_TO_ALL, GATHER = (f"{trace.PREFIX}.exchange.{p}"
+                               for p in ("scatter", "all_to_all", "gather"))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 # ---------------------------------------------------------------------------
@@ -86,6 +104,8 @@ class _Line:
         """sends[i]: held shard i's blocks, block j (leading dimension) for
         the shard at position j; returns what each held shard receives,
         block s from the shard at position s."""
+        trace.EXCHANGED["all_to_all"] += sum(_nbytes(send) - _nbytes(send[pos])
+                                             for send, pos in zip(sends, self.positions))
         if self.group is None:
             return [torch.stack([send[d].to(dev) for send in sends])
                     for d, dev in zip(self.positions, self.devices)]
@@ -263,18 +283,26 @@ def _run(mesh: Mesh, axis: str, xs: tuple, in_spec: tuple, out_spec: tuple, fn):
             raise ValueError(f"axis {a!r} not in the mesh {mesh.shape}")
     pieces = {}
     for members, line in mesh.lines(axis):
-        shards = [[x[_slices(x.shape, in_spec, mesh, i)].to(dev).contiguous()
-                   for i, dev in zip(members, line.devices)] for x in xs]
+        with trace.span(SCATTER):
+            shards = [[x[_slices(x.shape, in_spec, mesh, i)].to(dev).contiguous()
+                       for i, dev in zip(members, line.devices)] for x in xs]
+        if mesh.rank is None:
+            trace.EXCHANGED["scatter"] += sum(_nbytes(s) for per_x in shards
+                                              for i, s in zip(members, per_x) if i != 0)
         pieces.update(zip(members, fn(line, *shards)))
-    out = torch.empty_like(xs[0])
-    if mesh.rank is not None:
-        (y,) = pieces.values()
-        parts = [torch.empty_like(y) for _ in range(mesh.size)]
-        tdist.all_gather(parts, y.contiguous())
-        pieces = dict(enumerate(parts))
-    for i, y in pieces.items():
-        view = out[_slices(out.shape, out_spec, mesh, i)]
-        view.copy_(y.reshape(view.shape))
+    with trace.span(GATHER):
+        out = torch.empty_like(xs[0])
+        if mesh.rank is not None:
+            (y,) = pieces.values()
+            parts = [torch.empty_like(y) for _ in range(mesh.size)]
+            tdist.all_gather(parts, y.contiguous())
+            trace.EXCHANGED["gather"] += (mesh.size - 1) * _nbytes(y)
+            pieces = dict(enumerate(parts))
+        else:
+            trace.EXCHANGED["gather"] += sum(_nbytes(y) for i, y in pieces.items() if i != 0)
+        for i, y in pieces.items():
+            view = out[_slices(out.shape, out_spec, mesh, i)]
+            view.copy_(y.reshape(view.shape))
     return out
 
 
@@ -348,11 +376,13 @@ def _fwd_line(line: _Line, shards: list, plan: NttPlan, n1_log: int, n_chunks: i
                              _log2(lanes)).view(s.shape[0], d_, r, lanes) for s in shards]
     outs: list[list] = [[] for _ in shards]
     for c in range(n_chunks):
-        # (B, D, cpc, N2/D) -> (D, B, cpc, N2/D): block j for the shard at j
-        sends = [x[:, :, c * cpc:(c + 1) * cpc].transpose(0, 1).contiguous() for x in cols]
-        for out, pos, y in zip(outs, line.positions, line.all_to_all(sends)):
+        with trace.span(ALL_TO_ALL):
+            # (B, D, cpc, N2/D) -> (D, B, cpc, N2/D): block j for the shard at j
+            sends = [x[:, :, c * cpc:(c + 1) * cpc].transpose(0, 1).contiguous() for x in cols]
             # block s holds lanes [s N2/D, (s + 1) N2/D): (D, B, cpc, N2/D) -> (B, cpc, N2)
-            rows = y.permute(1, 2, 0, 3).reshape(y.shape[1], cpc * n2)
+            received = [y.permute(1, 2, 0, 3).reshape(y.shape[1], cpc * n2)
+                        for y in line.all_to_all(sends)]
+        for out, pos, rows in zip(outs, line.positions, received):
             out.append(rows_fn(rows, pos * r + c * cpc, _log2(cpc)))
     if len(outs[0]) == 1:
         return [out[0] for out in outs]
@@ -374,11 +404,13 @@ def _inv_line(line: _Line, shards: list, plan: NttPlan, n1_log: int, n_chunks: i
             for s, pos in zip(shards, line.positions)]
     outs: list[list] = [[] for _ in shards]
     for c in range(n_chunks):
-        # (B, N1/D, D, cpc) -> (D, B, N1/D, cpc): block j for the shard at j
-        sends = [x[..., c * cpc:(c + 1) * cpc].permute(2, 0, 1, 3).contiguous() for x in rows]
-        for out, y in zip(outs, line.all_to_all(sends)):
+        with trace.span(ALL_TO_ALL):
+            # (B, N1/D, D, cpc) -> (D, B, N1/D, cpc): block j for the shard at j
+            sends = [x[..., c * cpc:(c + 1) * cpc].permute(2, 0, 1, 3).contiguous() for x in rows]
             # block s holds rows [s N1/D, (s + 1) N1/D): (D, B, N1/D, cpc) -> (B, N1, cpc)
-            x = y.transpose(0, 1).reshape(y.shape[1], n1 * cpc)
+            received = [y.transpose(0, 1).reshape(y.shape[1], n1 * cpc)
+                        for y in line.all_to_all(sends)]
+        for out, x in zip(outs, received):
             out.append(twopass.inv_cols(x, plan, n1_log, col_plan, _log2(cpc)).view(-1, n1, cpc))
     return [out[0] if len(out) == 1 else torch.cat(out, dim=-1) for out in outs]
 
@@ -413,6 +445,7 @@ def _setup(a, plan, mesh, axis, batch_axis, device):
     return plan, mesh, mesh.shape[axis], x, shape, host
 
 
+@trace.traced("dist", "fwd")
 def dist_fwd_ntt(a, plan: "NttPlan | NttParams", mesh: Mesh | None = None,
                  n1_log: int | None = None, lazy: bool = False, axis: str = "x",
                  batch_axis: str | None = None, n_chunks: int = 1, device="cuda"):
@@ -431,6 +464,7 @@ def dist_fwd_ntt(a, plan: "NttPlan | NttParams", mesh: Mesh | None = None,
     return _output(out, shape, host)
 
 
+@trace.traced("dist", "inv")
 def dist_inv_ntt(a, plan: "NttPlan | NttParams", mesh: Mesh | None = None,
                  n1_log: int | None = None, axis: str = "x", batch_axis: str | None = None,
                  n_chunks: int = 1, device="cuda"):
@@ -445,6 +479,7 @@ def dist_inv_ntt(a, plan: "NttPlan | NttParams", mesh: Mesh | None = None,
     return _output(out, shape, host)
 
 
+@trace.traced("dist", "negacyclic")
 def dist_negacyclic_mul(a, b, plan: "NttPlan | NttParams", mesh: Mesh | None = None,
                         n1_log: int | None = None, axis: str = "x",
                         batch_axis: str | None = None, n_chunks: int = 1, device="cuda"):
@@ -477,6 +512,7 @@ def _rec_l1_for(plan: NttPlan, ndev: int) -> int:
     return max(sixstep.rec_split(plan.m), (ndev - 1).bit_length())
 
 
+@trace.traced("dist", "rec_fwd")
 def dist_rec_fwd_ntt(a, plan: "NttPlan | NttParams", mesh: Mesh | None = None,
                      l1_log: int | None = None, lazy: bool = False, axis: str = "x",
                      batch_axis: str | None = None, device="cuda"):
@@ -500,6 +536,7 @@ def dist_rec_fwd_ntt(a, plan: "NttPlan | NttParams", mesh: Mesh | None = None,
     return _output(out, shape, host)
 
 
+@trace.traced("dist", "rec_inv")
 def dist_rec_inv_ntt(a, plan: "NttPlan | NttParams", mesh: Mesh | None = None,
                      l1_log: int | None = None, axis: str = "x",
                      batch_axis: str | None = None, device="cuda"):
@@ -519,6 +556,7 @@ def dist_rec_inv_ntt(a, plan: "NttPlan | NttParams", mesh: Mesh | None = None,
     return _output(out, shape, host)
 
 
+@trace.traced("dist", "batch_fwd")
 def batch_parallel_fwd(a, plan: "NttPlan | NttParams", mesh: Mesh | None = None,
                        axis: str = "x", lazy: bool = False, device="cuda"):
     """The HE-batch mode: the batch sharded over ``axis``, whole forward

@@ -1,6 +1,6 @@
-"""Spans of the serving path and the one launch counter of the port.
+"""Spans of the serving path and the counters of the port.
 
-Spans.  Three layers of the serving path each open a span around every
+Spans.  The layers of the serving path each open a span around every
 call, named by layer and operation, never by channel or instantiation:
 
   * ``ntt_tpu_torch.tower.<op>``: a ``rns.DeviceRnsTower`` call
@@ -12,7 +12,15 @@ call, named by layer and operation, never by channel or instantiation:
     ``mul_mod``, ...), from its entry through its checks, its tables, the
     output's allocation, the device context and the stream lookup to the
     return of ``native.launch``: one launch on the card, the plain PyTorch
-    version on a CPU tensor.
+    version on a CPU tensor;
+  * ``ntt_tpu_torch.dist.<entry>``: a call of the distributed six-step
+    (``fwd``, ``inv``, ``negacyclic``, ``rec_fwd``, ``rec_inv``,
+    ``batch_fwd``; ``dist/sixstep.py``), the root of its request, with
+    its kernel spans and, inside it, one ``ntt_tpu_torch.exchange.<phase>``
+    span each time a phase of the exchange between shards runs:
+    ``scatter`` (the input's slices onto the shards), ``all_to_all`` (the
+    send-layout copy, the exchange, the copy into the next kernel's
+    layout), ``gather`` (the shards' outputs into the whole output).
 
 A span is on only while a profiler records
 (``torch.autograd.profiler._is_profiler_enabled``, which
@@ -28,7 +36,7 @@ a list of at most ``CAPACITY`` spans, on the profiler's clock
 Beyond ``CAPACITY`` spans are dropped and counted (``dropped()``);
 ``reset()`` empties the list.
 
-The launch counter.  ``LAUNCHES`` counts every kernel launch, in
+The counters.  ``LAUNCHES`` counts every kernel launch, in
 ``native.launch``, under its launcher's name less ``ntt_``
 (``fwd_fused_u64``, ``r4_stage_solinas_u32``, ``limb_matmul_left_scaled``,
 ...); beside those, finer counts under keys of their own:
@@ -36,7 +44,11 @@ The launch counter.  ``LAUNCHES`` counts every kernel launch, in
 ``kernels/rec.py``), ``mode/<launcher>/<mode>/<view>`` for each K9 / K10
 stage (``kernels/radix2.py``, ``kernels/radix4.py``), and
 ``fwd_fused_v2_r2_u<w>`` / ``fwd_fused_v2_r4_u<w>`` (with ``_solinas``)
-for L1 by its rounds' group (``kernels/fused_lab.py``).
+for L1 by its rounds' group (``kernels/fused_lab.py``).  ``EXCHANGED``
+counts the bytes that each phase of the distributed six-step's exchange
+(``scatter``, ``all_to_all``, ``gather``) sends from one shard position to
+another: what crosses between shards, whatever devices they lie on, so a
+mesh on the CPU counts what the same mesh on cards does.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ PREFIX = "ntt_tpu_torch"
 CAPACITY = 1 << 17  # 2,000 steps of a 46-span step, and room to spare
 
 LAUNCHES: collections.Counter = collections.Counter()
+EXCHANGED: collections.Counter = collections.Counter()
 
 
 class Span(NamedTuple):
@@ -121,12 +134,12 @@ def span(name: str):
     return _Span(name) if _profiler._is_profiler_enabled else _NULL
 
 
-def traced(layer: str):
+def traced(layer: str, op: str | None = None):
     """Decorator: each call of the function is a span named
-    ``ntt_tpu_torch.<layer>.<the function's name>``."""
+    ``ntt_tpu_torch.<layer>.<op>``, op the function's name by default."""
 
     def wrap(fn):
-        name = f"{PREFIX}.{layer}.{fn.__name__}"
+        name = f"{PREFIX}.{layer}.{op or fn.__name__}"
 
         @functools.wraps(fn)
         def call(*args, **kwargs):
